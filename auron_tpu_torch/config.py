@@ -1,0 +1,107 @@
+"""Typed configuration registry (counterpart of auron_tpu/config.py).
+
+Only the options this slice of the port reads, under the JAX package's
+names and defaults, so one conf map configures both engines.  Lookup
+order: a `scoped` override, then the `AURON_TPU_*` environment variable,
+then the default.  Options of the port's own go under `auron.torch.*`.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+
+def _env_key(key: str) -> str:
+    return "AURON_TPU_" + key.upper().replace(".", "_")
+
+
+@dataclass(frozen=True)
+class ConfigOption:
+    key: str
+    default: Any
+    type: type
+    doc: str = ""
+
+    def parse(self, raw: Any) -> Any:
+        if isinstance(raw, str) and self.type is bool:
+            return raw.strip().lower() in ("1", "true", "yes", "on")
+        return self.type(raw)
+
+
+class Configuration:
+    def __init__(self) -> None:
+        self._options: Dict[str, ConfigOption] = {}
+        self._overrides: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    def define(self, key: str, default: Any, doc: str = "") -> ConfigOption:
+        opt = ConfigOption(key, default, type(default), doc)
+        with self._lock:
+            if key in self._options:
+                raise ValueError(f"duplicate config option {key!r}")
+            self._options[key] = opt
+        return opt
+
+    def get(self, key: str) -> Any:
+        opt = self._options[key]
+        with self._lock:
+            if key in self._overrides:
+                return self._overrides[key]
+        raw = os.environ.get(_env_key(key))
+        return opt.parse(raw) if raw is not None else opt.default
+
+    def set(self, key: str, value: Any) -> None:
+        opt = self._options[key]
+        with self._lock:
+            self._overrides[key] = opt.parse(value)
+
+    def scoped(self, kv: Optional[Dict[str, Any]] = None) -> "_Scoped":
+        """Temporarily override options: `with conf.scoped({...}):`."""
+        return _Scoped(self, dict(kv or {}))
+
+
+class _Scoped:
+    def __init__(self, conf: Configuration, kv: Dict[str, Any]) -> None:
+        self._conf, self._kv = conf, kv
+        self._saved: Dict[str, Any] = {}
+
+    def __enter__(self) -> Configuration:
+        for k, v in self._kv.items():
+            with self._conf._lock:
+                self._saved[k] = self._conf._overrides.get(k, _MISSING)
+            self._conf.set(k, v)
+        return self._conf
+
+    def __exit__(self, *exc) -> bool:
+        for k, old in self._saved.items():
+            with self._conf._lock:
+                if old is _MISSING:
+                    self._conf._overrides.pop(k, None)
+                else:
+                    self._conf._overrides[k] = old
+        return False
+
+
+_MISSING = object()
+
+conf = Configuration()
+
+conf.define(
+    "auron.batch.size", 8192,
+    "Target rows per columnar batch; the front end cuts its scan batches "
+    "to this size.")
+conf.define(
+    "auron.batch.capacity.min", 1024,
+    "Smallest padded batch capacity bucket (capacities are powers of two).")
+conf.define(
+    "auron.partial.agg.skipping.enable", True,
+    "Skip partial aggregation when cardinality reduction is poor.")
+conf.define(
+    "auron.partial.agg.skipping.ratio", 0.999,
+    "Unique-groups/rows ratio above which partial agg passes rows through.")
+conf.define(
+    "auron.partial.agg.skipping.min.rows", 20480,
+    "Do not consider partial-agg skipping before this many input rows.")

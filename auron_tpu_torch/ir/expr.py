@@ -1,0 +1,73 @@
+"""Physical expression IR nodes (counterpart of auron_tpu/ir/expr.py).
+
+The kinds this slice evaluates: column reference, literal, cast and the
+binary arithmetic node (multiply), plus the aggregate call.  Field names,
+defaults and `kind` tags are the JAX package's, so their JSON is the same.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, ClassVar, Optional, Tuple
+
+from auron_tpu_torch.ir.node import Node, register
+from auron_tpu_torch.ir.schema import DataType
+
+
+@dataclass(frozen=True)
+class Expr(Node):
+    kind: ClassVar[str] = "expr"
+
+
+@register
+@dataclass(frozen=True)
+class Column(Expr):
+    """Column reference by name (resolved against the input schema)."""
+    kind: ClassVar[str] = "column"
+    name: str = ""
+
+
+@register
+@dataclass(frozen=True)
+class Literal(Expr):
+    kind: ClassVar[str] = "literal"
+    value: Any = None
+    dtype: DataType = field(default_factory=DataType.null)
+
+
+@register
+@dataclass(frozen=True)
+class BinaryExpr(Expr):
+    """op in {+,-,*,/,...}; the port evaluates `*`."""
+    kind: ClassVar[str] = "binary"
+    left: Expr = None  # type: ignore[assignment]
+    op: str = "+"
+    right: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class Cast(Expr):
+    """Spark-semantics cast (integral overflow wraps)."""
+    kind: ClassVar[str] = "cast"
+    child: Expr = None  # type: ignore[assignment]
+    dtype: DataType = field(default_factory=DataType.null)
+
+
+@register
+@dataclass(frozen=True)
+class AggExpr(Node):
+    """Aggregate call: fn is an AggFunction value string.  `udaf` and
+    `wire` stay None in the port; they are kept so the JSON matches."""
+    kind: ClassVar[str] = "agg_expr"
+    fn: str = "sum"
+    children: Tuple[Expr, ...] = ()
+    return_type: DataType = field(default_factory=DataType.null)
+    distinct: bool = False
+    udaf: Optional[bytes] = None
+    wire: Optional[Node] = None
+
+
+def col(name: str) -> Column:
+    return Column(name=name)
+

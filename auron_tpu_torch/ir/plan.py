@@ -1,0 +1,99 @@
+"""Physical plan IR nodes (counterpart of auron_tpu/ir/plan.py).
+
+The nodes of the shuffled group-by stage pair: the FFI and IPC readers,
+projection, aggregation, the RSS shuffle writer with its partitioning,
+and the `TaskDefinition` a front end ships.  Fields and `kind` tags are
+the JAX package's, so their JSON is the same.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, ClassVar, Tuple
+
+from auron_tpu_torch.ir.expr import AggExpr, Expr
+from auron_tpu_torch.ir.node import Node, register
+from auron_tpu_torch.ir.schema import Schema
+
+
+@dataclass(frozen=True)
+class PlanNode(Node):
+    kind: ClassVar[str] = "plan"
+
+
+@register
+@dataclass(frozen=True)
+class Partitioning(Node):
+    """mode in {hash, round_robin, single, range}; the port runs hash and
+    single."""
+    kind: ClassVar[str] = "partitioning"
+    mode: str = "single"
+    num_partitions: int = 1
+    expressions: Tuple[Expr, ...] = ()          # hash keys
+    sort_orders: Tuple[Node, ...] = ()          # range partitioning orders
+    range_bounds: Tuple[Any, ...] = ()          # sampled bound rows
+
+
+@register
+@dataclass(frozen=True)
+class IpcReader(PlanNode):
+    """Reads shuffle blocks from a resource (shuffle read)."""
+    kind: ClassVar[str] = "ipc_reader"
+    schema: Schema = None  # type: ignore[assignment]
+    resource_id: str = ""
+
+
+@register
+@dataclass(frozen=True)
+class FFIReader(PlanNode):
+    """Imports batches produced by the front end (the Arrow C-Data
+    import's counterpart)."""
+    kind: ClassVar[str] = "ffi_reader"
+    schema: Schema = None  # type: ignore[assignment]
+    resource_id: str = ""
+
+
+@register
+@dataclass(frozen=True)
+class Projection(PlanNode):
+    kind: ClassVar[str] = "projection"
+    child: PlanNode = None  # type: ignore[assignment]
+    exprs: Tuple[Expr, ...] = ()
+    names: Tuple[str, ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class Agg(PlanNode):
+    """Two-phase aggregation; exec_mode: partial | final | single."""
+    kind: ClassVar[str] = "agg"
+    child: PlanNode = None  # type: ignore[assignment]
+    exec_mode: str = "single"
+    grouping: Tuple[Expr, ...] = ()
+    grouping_names: Tuple[str, ...] = ()
+    aggs: Tuple[AggExpr, ...] = ()
+    agg_names: Tuple[str, ...] = ()
+    supports_partial_skipping: bool = False
+
+
+@register
+@dataclass(frozen=True)
+class RssShuffleWriter(PlanNode):
+    """Pushes the child's rows, grouped by partition, to a writer
+    registered under `rss_resource_id`."""
+    kind: ClassVar[str] = "rss_shuffle_writer"
+    child: PlanNode = None  # type: ignore[assignment]
+    partitioning: Partitioning = None  # type: ignore[assignment]
+    rss_resource_id: str = ""
+
+
+@register
+@dataclass(frozen=True)
+class TaskDefinition(Node):
+    """The unit shipped from a front end to the runtime."""
+    kind: ClassVar[str] = "task_definition"
+    plan: PlanNode = None  # type: ignore[assignment]
+    stage_id: int = 0
+    partition_id: int = 0
+    num_partitions: int = 1
+    host_threads: int = 0     # 0 = config default

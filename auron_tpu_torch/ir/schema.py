@@ -1,0 +1,118 @@
+"""Logical data types, fields and schemas (counterpart of
+auron_tpu/ir/schema.py).
+
+The full `TypeId` enum is kept so that every type name on the wire
+decodes; the port's device layer handles the flat types it maps to a
+torch dtype (`torch_dtype`), which this slice needs as int32, int64 and
+float64 (bool for validity and null literals).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+
+class TypeId(enum.IntEnum):
+    NULL = 0
+    BOOL = 1
+    INT8 = 2
+    INT16 = 3
+    INT32 = 4
+    INT64 = 5
+    FLOAT32 = 6
+    FLOAT64 = 7
+    DECIMAL = 8
+    STRING = 9
+    BINARY = 10
+    DATE32 = 11
+    TIMESTAMP_US = 12
+    LIST = 13
+    MAP = 14
+    STRUCT = 15
+
+
+_INTEGRAL = {TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64}
+
+_TORCH_DTYPES = {
+    TypeId.BOOL: torch.bool,
+    TypeId.INT32: torch.int32,
+    TypeId.INT64: torch.int64,
+    TypeId.FLOAT64: torch.float64,
+}
+
+
+@dataclass(frozen=True)
+class DataType:
+    id: TypeId
+    precision: int = 0            # DECIMAL only
+    scale: int = 0                # DECIMAL only
+    children: Tuple["Field", ...] = ()
+
+    @staticmethod
+    def null() -> "DataType": return DataType(TypeId.NULL)
+    @staticmethod
+    def bool_() -> "DataType": return DataType(TypeId.BOOL)
+    @staticmethod
+    def int32() -> "DataType": return DataType(TypeId.INT32)
+    @staticmethod
+    def int64() -> "DataType": return DataType(TypeId.INT64)
+    @staticmethod
+    def float64() -> "DataType": return DataType(TypeId.FLOAT64)
+
+    @property
+    def is_integral(self) -> bool: return self.id in _INTEGRAL
+    @property
+    def is_floating(self) -> bool:
+        return self.id in (TypeId.FLOAT32, TypeId.FLOAT64)
+    @property
+    def is_decimal(self) -> bool: return self.id == TypeId.DECIMAL
+
+    def torch_dtype(self) -> torch.dtype:
+        """The device dtype of a flat column of this type."""
+        if self.id not in _TORCH_DTYPES:
+            raise TypeError(f"type {self!r} has no device layout in "
+                            f"auron_tpu_torch yet")
+        return _TORCH_DTYPES[self.id]
+
+    def __repr__(self) -> str:
+        if self.id == TypeId.DECIMAL:
+            return f"decimal({self.precision},{self.scale})"
+        return self.id.name.lower()
+
+
+@dataclass(frozen=True)
+class Field:
+    name: str
+    dtype: DataType
+    nullable: bool = True
+
+
+@dataclass(frozen=True)
+class Schema:
+    fields: Tuple[Field, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "fields", tuple(self.fields))
+
+    @staticmethod
+    def of(*fields: Field) -> "Schema":
+        return Schema(tuple(fields))
+
+    def __len__(self) -> int: return len(self.fields)
+    def __iter__(self): return iter(self.fields)
+    def __getitem__(self, i: int) -> Field: return self.fields[i]
+
+    def index_of(self, name: str) -> int:
+        """Column resolution, case-insensitive like the JAX package's
+        default (`auron.case.sensitive` = false)."""
+        for i, f in enumerate(self.fields):
+            if f.name == name or f.name.lower() == name.lower():
+                return i
+        raise KeyError(name)
+
+    def field(self, name: str) -> Field:
+        return self.fields[self.index_of(name)]

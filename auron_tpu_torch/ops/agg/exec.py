@@ -1,0 +1,199 @@
+"""Aggregation operator, sort-based grouping on the device (counterpart
+of auron_tpu/ops/agg/exec.py: `AggExec` and `_group_reduce_body`).
+
+Per input batch: evaluate the keys, stable-sort the live rows by the
+order-preserving key words, flag the boundaries between equal-key runs,
+number the segments, and reduce every agg state over the segments.  The
+grouped batches are staged and merged, `_MERGE_FANIN` at a time, with the
+same reduction over partial states.  Null keys form one group (nulls
+first).  In `partial` mode the partial-agg skipping rule of the JAX
+package applies: once enough rows came in and the groups are nearly as
+many as the rows, the operator emits what it holds and passes the rest
+of its input through, grouped batch by batch.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Tuple
+
+import torch
+
+from auron_tpu_torch.columnar.batch import (
+    Batch, DeviceColumn, bucket_capacity, concat_batches,
+)
+from auron_tpu_torch.config import conf
+from auron_tpu_torch.exprs.compiler import build_evaluator
+from auron_tpu_torch.ir.expr import AggExpr
+from auron_tpu_torch.ir.schema import Field, Schema
+from auron_tpu_torch.ops.agg.functions import AggSpec, make_spec
+from auron_tpu_torch.ops.base import Operator, TaskContext
+
+# staged grouped batches merged at once (the JAX package's
+# `auron.agg.merge.fanin` default)
+_MERGE_FANIN = 8
+
+
+class AggExec(Operator):
+    def __init__(self, child: Operator, exec_mode: str, grouping,
+                 grouping_names, aggs: Tuple[AggExpr, ...], agg_names,
+                 supports_partial_skipping: bool = False):
+        if exec_mode not in ("partial", "final"):
+            raise NotImplementedError(
+                f"agg mode {exec_mode!r} is not in auron_tpu_torch yet")
+        if not grouping:
+            raise NotImplementedError(
+                "global aggregation is not in auron_tpu_torch yet")
+        in_schema = child.schema
+        self.exec_mode = exec_mode
+        self.nk = len(grouping)
+        self.specs: List[AggSpec] = [make_spec(a.fn, a.return_type, n)
+                                     for a, n in zip(aggs, agg_names)]
+        self._key_eval = build_evaluator(grouping, in_schema)
+        for t in self._key_eval.out_types:
+            if not t.is_integral:
+                raise NotImplementedError(
+                    f"grouping key of type {t!r} is not in auron_tpu_torch "
+                    f"yet")
+        key_fields = [Field(n, t) for n, t in
+                      zip(grouping_names, self._key_eval.out_types)]
+        self.state_schema = Schema(tuple(
+            key_fields + [f for s in self.specs for f in s.state_fields()]))
+        if exec_mode == "partial":
+            out_schema = self.state_schema
+            flat_inputs: List = []
+            self._arg_slices: List[Tuple[int, int]] = []
+            for a in aggs:
+                start = len(flat_inputs)
+                flat_inputs.extend(a.children)
+                self._arg_slices.append((start, len(flat_inputs)))
+            self._val_eval = build_evaluator(flat_inputs, in_schema)
+        else:
+            out_schema = Schema(tuple(key_fields + [
+                Field(n, a.return_type) for n, a in zip(agg_names, aggs)]))
+        super().__init__(out_schema, [child])
+        self.supports_partial_skipping = supports_partial_skipping and \
+            exec_mode == "partial" and \
+            bool(conf.get("auron.partial.agg.skipping.enable"))
+        self._staged: List[Batch] = []
+
+    # -- grouping ------------------------------------------------------
+
+    def _state_slices(self, cols: List[DeviceColumn]
+                      ) -> List[List[DeviceColumn]]:
+        out, off = [], 0
+        for spec in self.specs:
+            k = len(spec.state_fields())
+            out.append(cols[off:off + k])
+            off += k
+        return out
+
+    def _eval(self, b: Batch, merge_input: bool):
+        keys = self._key_eval(b)
+        if merge_input:
+            return keys, self._state_slices(b.columns[self.nk:])
+        vals = self._val_eval(b)
+        return keys, [vals[s:e] for s, e in self._arg_slices]
+
+    def _reduce(self, keys, vcols, num_rows: int, merge: bool) -> Batch:
+        cols, n_groups, cap = group_reduce(keys, vcols, num_rows,
+                                           self.specs, merge)
+        return Batch(self.state_schema, cols, n_groups, cap)
+
+    # -- staged accumulation -------------------------------------------
+
+    def _stage(self, grouped: Batch) -> None:
+        self._staged.append(grouped)
+        if len(self._staged) >= _MERGE_FANIN:
+            self._compact()
+
+    def _compact(self) -> Optional[Batch]:
+        """Merge the staged grouped batches into one."""
+        if len(self._staged) > 1:
+            merged = concat_batches(self.state_schema, self._staged)
+            self._staged = [self._reduce(
+                merged.columns[:self.nk],
+                self._state_slices(merged.columns[self.nk:]),
+                merged.num_rows, merge=True)]
+        return self._staged[0] if self._staged else None
+
+    def execute(self, ctx: TaskContext) -> Iterator[Batch]:
+        merge_input = self.exec_mode == "final"
+        input_rows = 0
+        passthrough = False
+        stream = self.child_stream(ctx)   # one iterator: both loops share
+        for b in stream:
+            if b.num_rows == 0:
+                continue
+            self._stage(self._reduce(*self._eval(b, merge_input),
+                                     b.num_rows, merge_input))
+            if not self.supports_partial_skipping:
+                continue
+            input_rows += b.num_rows
+            if input_rows >= int(conf.get(
+                    "auron.partial.agg.skipping.min.rows")):
+                acc = self._compact()
+                if acc.num_rows / input_rows >= float(conf.get(
+                        "auron.partial.agg.skipping.ratio")):
+                    passthrough = True
+                    self.count("partial_skipped", 1)
+                    yield acc
+                    self._staged = []
+                    break
+        if passthrough:
+            for b in stream:
+                if b.num_rows:
+                    yield self._reduce(*self._eval(b, False), b.num_rows,
+                                       merge=False)
+            return
+        acc = self._compact()
+        self._staged = []
+        if acc is not None:
+            yield acc if self.exec_mode == "partial" else self._finalize(acc)
+
+    def _finalize(self, acc: Batch) -> Batch:
+        out = list(acc.columns[:self.nk])
+        for spec, states in zip(self.specs,
+                                self._state_slices(acc.columns[self.nk:])):
+            out.append(spec.eval_final(states))
+        return Batch(self.schema, out, acc.num_rows, acc.capacity)
+
+
+def group_reduce(keys: List[DeviceColumn], value_cols: List[List[DeviceColumn]],
+                 num_rows: int, specs: List[AggSpec], merge: bool
+                 ) -> Tuple[List[DeviceColumn], int, int]:
+    """Sort-based group reduction of the first `num_rows` rows.
+
+    The integral key values are their own order-preserving words.  The
+    rows are lexsorted by stable sorts from the last key to the first:
+    per key by value, then by validity, so nulls come first and all null
+    keys of a column fall together.  Returns (key columns + state columns
+    at capacity bucket_capacity(n_groups), n_groups, that capacity); the
+    group count is read back to the host once."""
+    n = num_rows
+    dev = keys[0].data.device
+    perm = torch.arange(n, device=dev)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k.data[:n][perm], stable=True).indices]
+        perm = perm[torch.sort(k.validity[:n][perm].to(torch.uint8),
+                               stable=True).indices]
+    boundary = torch.zeros(n, dtype=torch.bool, device=dev)
+    boundary[0] = True
+    for k in keys:
+        d, v = k.data[:n][perm], k.validity[:n][perm]
+        boundary[1:] |= (d[1:] != d[:-1]) | (v[1:] != v[:-1])
+    seg = torch.cumsum(boundary, 0) - 1
+    first = torch.nonzero(boundary).squeeze(1)
+    n_groups = int(first.shape[0])
+    cap = bucket_capacity(n_groups)
+    valid = torch.arange(cap, device=dev) < n_groups
+    key_src = torch.nn.functional.pad(perm[first], (0, cap - n_groups))
+    out: List[DeviceColumn] = [k.gather(key_src, valid) for k in keys]
+    for spec, cols in zip(specs, value_cols):
+        scols = [DeviceColumn(c.dtype, c.data[:n][perm], c.validity[:n][perm])
+                 for c in cols]
+        states = spec.merge_segments(scols, seg, cap) if merge else \
+            spec.update_segments(scols, seg, cap)
+        # rows past the group count hold reductions of nothing
+        out.extend(DeviceColumn(s.dtype, s.data, s.validity & valid)
+                   for s in states)
+    return out, n_groups, cap

@@ -1,0 +1,38 @@
+"""Physical planner: plan IR -> operator tree (counterpart of
+auron_tpu/runtime/planner.py), one arm per plan-node kind of this slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from auron_tpu_torch.ir import plan as P
+from auron_tpu_torch.ops.agg.exec import AggExec
+from auron_tpu_torch.ops.base import Operator
+from auron_tpu_torch.ops.basic import ProjectExec
+from auron_tpu_torch.ops.scan.ipc import FFIReaderExec, IpcReaderExec
+from auron_tpu_torch.ops.shuffle.writer import RssShuffleWriterExec
+
+
+class PhysicalPlanner:
+    def __init__(self) -> None:
+        self._arms: Dict[str, Callable[..., Operator]] = {
+            "ffi_reader": lambda n: FFIReaderExec(n.schema, n.resource_id),
+            "ipc_reader": lambda n: IpcReaderExec(n.schema, n.resource_id),
+            "projection": lambda n: ProjectExec(
+                self.create_plan(n.child), n.exprs, n.names),
+            "agg": lambda n: AggExec(
+                self.create_plan(n.child), n.exec_mode, n.grouping,
+                n.grouping_names, n.aggs, n.agg_names,
+                n.supports_partial_skipping),
+            "rss_shuffle_writer": lambda n: RssShuffleWriterExec(
+                self.create_plan(n.child), n.partitioning,
+                n.rss_resource_id),
+        }
+
+    def create_plan(self, node: P.PlanNode) -> Operator:
+        arm = self._arms.get(node.kind)
+        if arm is None:
+            raise NotImplementedError(
+                f"plan node {node.kind!r} is not in auron_tpu_torch yet")
+        return arm(node)

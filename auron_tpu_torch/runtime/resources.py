@@ -1,0 +1,28 @@
+"""Task-scoped resource registry (counterpart of
+auron_tpu/runtime/resources.py).
+
+Front ends and exchanges park batch sources and shuffle writers here
+under the string ids that plan nodes name (FFIReader.resource_id,
+IpcReader.resource_id, RssShuffleWriter.rss_resource_id).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict
+
+
+class ResourceRegistry:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._map: Dict[str, Any] = {}
+
+    def put(self, key: str, value: Any) -> None:
+        with self._lock:
+            self._map[key] = value
+
+    def get(self, key: str) -> Any:
+        with self._lock:
+            if key not in self._map:
+                raise KeyError(f"resource {key!r} not registered")
+            return self._map[key]

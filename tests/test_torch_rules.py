@@ -1,0 +1,141 @@
+"""Rules of the port: auron_tpu_torch and chip_smoke.py import nothing of
+JAX or the JAX package, pyarrow and zstandard only inside functions; the
+entry points run on the card unless asked for the CPU; the kernel wrapper
+launches or raises on a CUDA tensor and never falls back."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from auron_tpu_torch.ops import kernels_cuda as K
+from auron_tpu_torch.runtime import executor
+
+import torch_parity as TP
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "auron_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "auron_tpu")
+LAZY_ONLY = ("pyarrow", "zstandard")
+
+
+def _imports(tree):
+    """(module name, at module level) for every import in the tree."""
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module, id(node) in top
+
+
+def _is(name, root):
+    return name == root or name.startswith(root + ".")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, top_level in _imports(tree):
+        if _is(name, "auron_tpu_torch"):
+            continue
+        assert not any(_is(name, f) for f in FORBIDDEN), \
+            f"{path.name} imports {name}"
+        if top_level:
+            assert not any(_is(name, m) for m in LAZY_ONLY), \
+                f"{path.name} imports {name} at module level"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"kernels_cuda.py", "executor.py", "chip_smoke.py"} <= names
+
+
+def test_import_leaves_jax_out():
+    mods = ["auron_tpu_torch"] + sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "auron_tpu_torch").rglob("*.py"))
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'jaxlib', 'auron_tpu', 'pyarrow', "
+            "'zstandard') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card and without device='cpu', execute_task_bytes raises
+    before it reads any input."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pulled = []
+
+    def source():
+        pulled.append(1)
+        yield from ()
+    from auron_tpu.ir import plan as JP
+    from auron_tpu.ir import serde as jserde
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    data = jserde.serialize(JP.TaskDefinition(plan=TP.partial_agg(
+        TP.projection(JP.FFIReader(schema=TP.SRC_SCHEMA,
+                                   resource_id="src")))), codec="zlib")
+    res = ResourceRegistry()
+    res.put("src", source())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        executor.execute_task_bytes(data, res)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        executor.execute_task_bytes(data, res, device="cuda")
+    assert not pulled
+    out = executor.execute_task_bytes(data, res, device="cpu")
+    assert pulled and out.batches == []
+
+
+def test_kernel_wrapper_never_falls_back(monkeypatch):
+    """A CUDA tensor goes to the kernel or raises; here, with no toolkit
+    and no card, it raises and the plain version is not called."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        data = torch.empty(64, dtype=torch.int64, device="cuda")
+        valid = torch.empty(64, dtype=torch.bool, device="cuda")
+    called = []
+    monkeypatch.setattr(K, "hash_partition_ids_i64_plain",
+                        lambda *a: called.append(a))
+    monkeypatch.setattr(K, "_libs", {})
+    before = dict(K.LAUNCHES)
+    with pytest.raises(Exception):
+        K.hash_partition_ids_i64(data, valid, 8)
+    assert not called
+    assert K.LAUNCHES == before
+    meta = torch.empty(8, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        K.hash_partition_ids_i64(meta, torch.empty(8, dtype=torch.bool,
+                                                   device="meta"), 8)
+    assert not called
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "contiguous",
+                                 "n_parts"])
+def test_kernel_wrapper_checks_its_inputs(bad):
+    data = torch.arange(16, dtype=torch.int64)
+    valid = torch.ones(16, dtype=torch.bool)
+    n_parts = 4
+    if bad == "dtype":
+        data = data.to(torch.int32)
+    elif bad == "shape":
+        valid = valid[:8]
+    elif bad == "device":
+        valid = valid.to("meta")
+    elif bad == "contiguous":
+        data = torch.arange(32, dtype=torch.int64)[::2]
+    else:
+        n_parts = 0
+    with pytest.raises((TypeError, ValueError)):
+        K.hash_partition_ids_i64(data, valid, n_parts)

@@ -1,0 +1,143 @@
+"""Shared inputs for the parity tests of auron_tpu_torch against auron_tpu.
+
+Both engines get the same numpy columns, made from a seed: the JAX
+package as pyarrow RecordBatches, the port as (arrays, validities) pairs
+(or the same RecordBatches).  Plans are built with the JAX package's IR
+builders and shipped to both engines as serialized TaskDefinition bytes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pyarrow as pa
+
+from auron_tpu.ir import expr as JE
+from auron_tpu.ir import plan as JP
+from auron_tpu.ir.schema import DataType as JDT
+from auron_tpu.ir.schema import Field as JF
+from auron_tpu.ir.schema import Schema as JS
+
+F64, I64, I32 = JDT.float64(), JDT.int64(), JDT.int32()
+SRC_SCHEMA = JS.of(JF("ss_customer_sk", I64), JF("ss_quantity", I32),
+                   JF("ss_sales_price", F64))
+AGG_NAMES = ("sum_sales", "cnt_sales")
+STATE_SCHEMA = JS.of(JF("ss_customer_sk", I64),
+                     JF("sum_sales#sum", F64),
+                     JF("cnt_sales#count", I64, nullable=False))
+
+
+def make_sales(n: int, seed: int, n_keys: int = 500, null_frac: float = 0.05):
+    """store_sales-shaped columns: key, quantity, price, each with nulls;
+    key 7 has only null prices, so its sum is null and its count 0."""
+    rng = np.random.default_rng(seed)
+    sk = rng.integers(1, n_keys + 1, n, dtype=np.int64)
+    qty = rng.integers(1, 101, n, dtype=np.int32)
+    price = np.round(rng.random(n) * 200.0, 2)
+    valid = [rng.random(n) >= null_frac for _ in range(3)]
+    valid[2] &= sk != 7
+    return [sk, qty, price], valid
+
+
+def chunks(cols, valid, size: int):
+    """(arrays, validities) pairs of `size` rows (views)."""
+    n = len(cols[0])
+    return [([c[s:s + size] for c in cols], [v[s:s + size] for v in valid])
+            for s in range(0, n, size)]
+
+
+def to_arrow(arrays, validities, schema=SRC_SCHEMA) -> pa.RecordBatch:
+    from auron_tpu.ir.schema import to_arrow_type
+    return pa.RecordBatch.from_arrays(
+        [pa.array(a, type=to_arrow_type(f.dtype), mask=~v)
+         for a, v, f in zip(arrays, validities, schema.fields)],
+        names=list(schema.names()))
+
+
+def sales_aggs():
+    return (JE.AggExpr(fn="sum", children=(JE.col("sales"),),
+                       return_type=F64),
+            JE.AggExpr(fn="count", children=(JE.col("sales"),),
+                       return_type=I64))
+
+
+def projection(child):
+    return JP.Projection(
+        child=child,
+        exprs=(JE.col("ss_customer_sk"),
+               JE.BinaryExpr(left=JE.Cast(child=JE.col("ss_quantity"),
+                                          dtype=F64),
+                             op="*", right=JE.col("ss_sales_price"))),
+        names=("ss_customer_sk", "sales"))
+
+
+def partial_agg(child, skipping: bool = False):
+    return JP.Agg(child=child, exec_mode="partial",
+                  grouping=(JE.col("ss_customer_sk"),),
+                  grouping_names=("ss_customer_sk",), aggs=sales_aggs(),
+                  agg_names=AGG_NAMES, supports_partial_skipping=skipping)
+
+
+def final_agg(child):
+    return JP.Agg(child=child, exec_mode="final",
+                  grouping=(JE.col("ss_customer_sk"),),
+                  grouping_names=("ss_customer_sk",), aggs=sales_aggs(),
+                  agg_names=AGG_NAMES)
+
+
+def map_plan(n_parts: int):
+    return JP.RssShuffleWriter(
+        child=partial_agg(projection(
+            JP.FFIReader(schema=SRC_SCHEMA, resource_id="store_sales"))),
+        partitioning=JP.Partitioning(
+            mode="hash", num_partitions=n_parts,
+            expressions=(JE.col("ss_customer_sk"),)),
+        rss_resource_id="shuffle_writer")
+
+
+def reduce_plan():
+    return final_agg(JP.IpcReader(schema=STATE_SCHEMA,
+                                  resource_id="shuffle_read"))
+
+
+def jax_columns(batches, names):
+    """{name: (data, validity)} of JAX result RecordBatches."""
+    out = {}
+    for name in names:
+        arrs = [rb.column(rb.schema.get_field_index(name)) for rb in batches]
+        if not arrs:
+            out[name] = (np.zeros(0), np.zeros(0, bool))
+            continue
+        col = pa.chunked_array(arrs).combine_chunks()
+        out[name] = (np.asarray(col.fill_null(0).to_numpy(
+            zero_copy_only=False)), np.asarray(col.is_valid()))
+    return out
+
+
+def keyed_rows(cols, key: str, names):
+    """{key or None: tuple of (value or None) per name}, nulls as None."""
+    kd, kv = cols[key]
+    rows = {}
+    for i in range(len(kd)):
+        k = int(kd[i]) if kv[i] else None
+        if k in rows:
+            raise AssertionError(f"key {k} appears twice")
+        rows[k] = tuple(cols[n][0][i].item() if cols[n][1][i] else None
+                        for n in names)
+    return rows
+
+
+def assert_same_groups(got, exp, float_names=("sum_sales",),
+                       names=("sum_sales", "cnt_sales")):
+    """Unordered tables keyed on ss_customer_sk: same keys, ints exact,
+    floats to relative 1e-9 (the engines sum in different orders)."""
+    g = keyed_rows(got, "ss_customer_sk", names)
+    e = keyed_rows(exp, "ss_customer_sk", names)
+    assert set(g) == set(e)
+    for k in e:
+        for name, gv, ev in zip(names, g[k], e[k]):
+            if ev is None or gv is None:
+                assert gv is None and ev is None, (k, name, gv, ev)
+            elif name in float_names:
+                assert abs(gv - ev) <= 1e-9 * abs(ev), (k, name, gv, ev)
+            else:
+                assert gv == ev, (k, name, gv, ev)
