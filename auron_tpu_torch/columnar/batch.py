@@ -8,6 +8,10 @@ Invariants every operator relies on:
 - null slots hold canonical zeros.
 Unlike the JAX package, `num_rows` is always a host int: torch runs
 eagerly, and the operators that change a row count read it back once.
+Shuffle blocks are the one exception to the padding: a block is a view
+of one partition's rows in the writer's partition-sorted columns, so its
+capacity is its row count (ops/shuffle/writer.py).  Their readers take
+the live rows `[:num_rows]`, as every consumer here does.
 """
 
 from __future__ import annotations
@@ -86,11 +90,41 @@ class Batch:
     def mem_bytes(self) -> int:
         return sum(c.nbytes() for c in self.columns)
 
+    def gather(self, indices: torch.Tensor, num_rows: int) -> "Batch":
+        """Rows by index, at capacity len(indices): output row i <
+        num_rows is row indices[i]; rows beyond num_rows are padding
+        (null, zero) whatever their index."""
+        cap = int(indices.shape[0])
+        valid = torch.arange(cap, device=indices.device) < num_rows
+        idx = torch.where(valid, indices, 0)
+        return Batch(self.schema, [c.gather(idx, valid) for c in self.columns],
+                     num_rows, cap)
+
+    def head(self, n: int) -> "Batch":
+        """The first n rows, in place of the batch: rows from n on become
+        padding."""
+        n = min(n, self.num_rows)
+        keep = torch.arange(self.capacity, device=self.device) < n
+        return Batch(self.schema, [flat(c.dtype, c.data, c.validity & keep)
+                                   for c in self.columns], n, self.capacity)
+
+    def slice(self, offset: int, n: int) -> "Batch":
+        """Rows [offset, offset + n) as a new padded batch."""
+        cap = bucket_capacity(n)
+        return Batch(self.schema, [
+            DeviceColumn(c.dtype, _pad(c.data[offset:offset + n], cap),
+                         _pad(c.validity[offset:offset + n], cap))
+            for c in self.columns], n, cap)
+
     def to_numpy(self):
         """(arrays, validities) of the live rows, on the host."""
         n = self.num_rows
         return ([c.data[:n].cpu().numpy() for c in self.columns],
                 [c.validity[:n].cpu().numpy() for c in self.columns])
+
+
+def _pad(t: torch.Tensor, cap: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, cap - t.shape[0]))
 
 
 def from_numpy(schema: Schema, arrays: Sequence[np.ndarray],
@@ -131,10 +165,13 @@ def concat_batches(schema: Schema, batches: List[Batch],
         raise ValueError(f"concat capacity {cap} < total rows {total}")
     cols: List[DeviceColumn] = []
     for ci, f in enumerate(schema):
-        parts = [b.columns[ci] for b in batches]
-        data = torch.cat([p.data[:b.num_rows] for b, p in zip(batches, parts)])
-        valid = torch.cat([p.validity[:b.num_rows]
-                           for b, p in zip(batches, parts)])
+        # an unpadded batch's columns are its live rows as they are
+        parts = [(b.columns[ci], b.num_rows, b.num_rows == b.capacity)
+                 for b in batches]
+        data = torch.cat([c.data if whole else c.data[:n]
+                          for c, n, whole in parts])
+        valid = torch.cat([c.validity if whole else c.validity[:n]
+                           for c, n, whole in parts])
         pad = cap - total
         cols.append(DeviceColumn(
             f.dtype, torch.nn.functional.pad(data, (0, pad)),

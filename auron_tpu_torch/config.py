@@ -105,3 +105,26 @@ conf.define(
 conf.define(
     "auron.partial.agg.skipping.min.rows", 20480,
     "Do not consider partial-agg skipping before this many input rows.")
+conf.define(
+    "auron.kernel.sort.strategy", "auto",
+    "Argsort family of the encoded-sort-key sorts: 'radix' = the "
+    "pack-sort of ops/radix_sort.py (row index packed into the low bits "
+    "of word-packed keys, composed value sorts), 'argsort' = stable "
+    "argsorts, 'auto' = radix on the CPU above "
+    "auron.kernel.sort.radix.min.rows, argsort on the card.  Either way "
+    "the permutation is the same stable order.")
+conf.define(
+    "auron.kernel.sort.radix.min.rows", 1 << 15,
+    "Capacity below which 'auto' keeps the argsort form.")
+conf.define(
+    "auron.sort.multipass.enable", "auto",
+    "Form of the argsort strategy: composed stable single-word argsorts "
+    "('on'; 'auto' on the card) or one multi-key lexsort ('off'; 'auto' "
+    "on the CPU).  torch has no multi-key sort, so the port computes "
+    "'off' by the same composition; the permutation is the same.")
+conf.define(
+    "auron.sort.f64.exactbits", "auto",
+    "Exact 64-bit FLOAT64 sort keys on backends that demote float64 "
+    "(the TPU).  torch keeps float64 on the card and the CPU, where every "
+    "setting gives the exact IEEE ordering, so the port never reads it; "
+    "it is defined so that one conf map configures both engines.")

@@ -1,7 +1,8 @@
 """Physical expression IR nodes (counterpart of auron_tpu/ir/expr.py).
 
 The kinds this slice evaluates: column reference, literal, cast and the
-binary arithmetic node (multiply), plus the aggregate call.  Field names,
+binary arithmetic node (multiply), plus the aggregate call and the sort
+order of a Sort or a range partitioning.  Field names,
 defaults and `kind` tags are the JAX package's, so their JSON is the same.
 """
 
@@ -52,6 +53,16 @@ class Cast(Expr):
     kind: ClassVar[str] = "cast"
     child: Expr = None  # type: ignore[assignment]
     dtype: DataType = field(default_factory=DataType.null)
+
+
+@register
+@dataclass(frozen=True)
+class SortExpr(Node):
+    """One sort key: its expression, direction and null placement."""
+    kind: ClassVar[str] = "sort_expr"
+    child: Expr = None  # type: ignore[assignment]
+    asc: bool = True
+    nulls_first: bool = True
 
 
 @register

@@ -1,17 +1,17 @@
 """Physical plan IR nodes (counterpart of auron_tpu/ir/plan.py).
 
-The nodes of the shuffled group-by stage pair: the FFI and IPC readers,
-projection, aggregation, the RSS shuffle writer with its partitioning,
-and the `TaskDefinition` a front end ships.  Fields and `kind` tags are
+The nodes of the shuffled group-by and global-sort stage pairs: the FFI
+and IPC readers, projection, aggregation, sort, the RSS shuffle writer
+with its partitioning, and the `TaskDefinition` a front end ships.  Fields and `kind` tags are
 the JAX package's, so their JSON is the same.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, ClassVar, Tuple
+from typing import Any, ClassVar, Optional, Tuple
 
-from auron_tpu_torch.ir.expr import AggExpr, Expr
+from auron_tpu_torch.ir.expr import AggExpr, Expr, SortExpr
 from auron_tpu_torch.ir.node import Node, register
 from auron_tpu_torch.ir.schema import Schema
 
@@ -24,14 +24,14 @@ class PlanNode(Node):
 @register
 @dataclass(frozen=True)
 class Partitioning(Node):
-    """mode in {hash, round_robin, single, range}; the port runs hash and
-    single."""
+    """mode in {hash, round_robin, single, range}; the port runs hash,
+    range and single."""
     kind: ClassVar[str] = "partitioning"
     mode: str = "single"
     num_partitions: int = 1
     expressions: Tuple[Expr, ...] = ()          # hash keys
-    sort_orders: Tuple[Node, ...] = ()          # range partitioning orders
-    range_bounds: Tuple[Any, ...] = ()          # sampled bound rows
+    sort_orders: Tuple[SortExpr, ...] = ()      # range partitioning orders
+    range_bounds: Tuple[Any, ...] = ()          # sampled bound rows (tuples)
 
 
 @register
@@ -74,6 +74,17 @@ class Agg(PlanNode):
     aggs: Tuple[AggExpr, ...] = ()
     agg_names: Tuple[str, ...] = ()
     supports_partial_skipping: bool = False
+
+
+@register
+@dataclass(frozen=True)
+class Sort(PlanNode):
+    """In-memory sort with an optional fetch limit and offset."""
+    kind: ClassVar[str] = "sort"
+    child: PlanNode = None  # type: ignore[assignment]
+    sort_exprs: Tuple[SortExpr, ...] = ()
+    fetch_limit: Optional[int] = None
+    fetch_offset: int = 0
 
 
 @register

@@ -3,8 +3,9 @@ auron_tpu/ir/schema.py).
 
 The full `TypeId` enum is kept so that every type name on the wire
 decodes; the port's device layer handles the flat types it maps to a
-torch dtype (`torch_dtype`), which this slice needs as int32, int64 and
-float64 (bool for validity and null literals).
+torch dtype (`torch_dtype`): bool, int8/16/32/64, float64, date32 as
+int32 days and timestamp as int64 microseconds, the JAX package's
+physical types.
 """
 
 from __future__ import annotations
@@ -39,9 +40,13 @@ _INTEGRAL = {TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64}
 
 _TORCH_DTYPES = {
     TypeId.BOOL: torch.bool,
+    TypeId.INT8: torch.int8,
+    TypeId.INT16: torch.int16,
     TypeId.INT32: torch.int32,
     TypeId.INT64: torch.int64,
     TypeId.FLOAT64: torch.float64,
+    TypeId.DATE32: torch.int32,
+    TypeId.TIMESTAMP_US: torch.int64,
 }
 
 

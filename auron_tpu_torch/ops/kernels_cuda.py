@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels and their wrappers.
 
-`hash_partition_ids_i64` replaces the Pallas TPU kernel of the same name
-(auron_tpu/ops/kernels_pallas.py).  The CUDA source is
-`auron_tpu_torch/csrc/hash_pid.cu`; it is compiled with `nvcc` for sm_90a
-into `build/auron_tpu_torch/` at first use and loaded with ctypes (a plain
-C interface builds in seconds, where a source including PyTorch's headers
+Each replaces the Pallas TPU kernel of the same name in
+auron_tpu/ops/kernels_pallas.py:
+- `hash_partition_ids_i64` (source `auron_tpu_torch/csrc/hash_pid.cu`);
+- `radix_bucket_hist` (source `auron_tpu_torch/csrc/radix_hist.cu`).
+Each source is compiled with `nvcc` for sm_90a into
+`build/auron_tpu_torch/` at first use and loaded with ctypes (a plain C
+interface builds in seconds, where a source including PyTorch's headers
 takes minutes).
 
 Each wrapper runs its plain PyTorch version, which lives beside it, only
@@ -29,12 +31,14 @@ from auron_tpu_torch.exprs.hashing import hash_columns, pmod
 from auron_tpu_torch.ir.schema import DataType
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"hash_pid": _PKG / "csrc" / "hash_pid.cu"}
+SOURCES = {"hash_pid": _PKG / "csrc" / "hash_pid.cu",
+           "radix_hist": _PKG / "csrc" / "radix_hist.cu"}
 BUILD_DIR = _PKG.parent / "build" / "auron_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES: Dict[str, int] = {"hash_partition_ids_i64": 0}
+LAUNCHES: Dict[str, int] = {"hash_partition_ids_i64": 0,
+                            "radix_bucket_hist": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -100,6 +104,11 @@ def _load(name: str) -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    elif name == "radix_hist":
+        fn = lib.auron_radix_bucket_hist
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -158,4 +167,76 @@ def hash_partition_ids_i64(data: torch.Tensor, validity: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"hash_pid kernel launch failed: CUDA error {rc}")
     LAUNCHES["hash_partition_ids_i64"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-tile radix bucket histogram of u32 words
+# ---------------------------------------------------------------------------
+
+LANES = 128
+MAX_TILE_ROWS = 256
+HIST_MAX_BITS = 8            # 2^b_bits <= 256 buckets
+
+
+def hist_tile_rows(cap: int) -> int:
+    """The Pallas kernel's tile height for `cap` words: min(cap/128, 256),
+    lowered until it divides cap/128."""
+    rows = cap // LANES
+    tile_rows = min(rows, MAX_TILE_ROWS)
+    while rows % tile_rows:
+        tile_rows -= 1
+    return tile_rows
+
+
+def radix_bucket_hist_plain(words: torch.Tensor, b_bits: int
+                            ) -> torch.Tensor:
+    """The plain version, the Pallas body's function: per tile, for each
+    bucket, the count of words whose top b_bits bits equal it."""
+    cap = words.shape[0]
+    tile = hist_tile_rows(cap) * LANES
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    digit = (u >> (32 - b_bits) if b_bits else torch.zeros_like(u)) \
+        .view(cap // tile, tile)
+    return torch.stack([(digit == d).sum(1, dtype=torch.int32)
+                        for d in range(1 << b_bits)], 1)
+
+
+def radix_bucket_hist(words: torch.Tensor, b_bits: int) -> torch.Tensor:
+    """Per-tile histogram of the top `b_bits` bits of u32 words ->
+    int32[n_tiles, 2^b_bits], tiles of hist_tile_rows(cap) x 128 words.
+
+    words: the u32 words as an int32 tensor holding their bits (a bit
+    view: a word >= 2^31 is the negative int32 of the same bits), 1-D,
+    contiguous, cap % 128 == 0.  b_bits in 0..8, else ValueError, as the
+    Pallas kernel.  On a CUDA device this launches the hand-written kernel
+    on the current stream without synchronising; on the CPU it runs the
+    plain version."""
+    if not 1 <= (1 << b_bits) <= (1 << HIST_MAX_BITS):
+        raise ValueError(f"b_bits {b_bits} outside staging range")
+    if words.dim() != 1 or words.dtype != torch.int32:
+        raise TypeError(f"want 1-D int32 words, got {words.dtype} of "
+                        f"shape {tuple(words.shape)}")
+    cap = words.shape[0]
+    if cap == 0 or cap % LANES:
+        raise ValueError(f"word count {cap} is not a positive multiple "
+                         f"of {LANES}")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+    if words.device.type == "cpu":
+        return radix_bucket_hist_plain(words, b_bits)
+    if words.device.type != "cuda":
+        raise ValueError(f"no radix-hist kernel for device {words.device}")
+    lib = _library("radix_hist")
+    tile_rows = hist_tile_rows(cap)
+    out = torch.empty((cap // (tile_rows * LANES), 1 << b_bits),
+                      dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.auron_radix_bucket_hist(words.data_ptr(), out.data_ptr(),
+                                         cap, tile_rows, b_bits, stream)
+    if rc != 0:
+        raise RuntimeError(f"radix_hist kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["radix_bucket_hist"] += 1
     return out

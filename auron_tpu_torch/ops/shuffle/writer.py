@@ -1,12 +1,22 @@
 """RSS shuffle writer and the in-process shuffle service (counterpart of
 auron_tpu/ops/shuffle/writer.py).
 
-Rows are grouped by partition on the device: the partition ids go
-through one stable sort (rows keep their input order inside a partition,
-as the JAX package's host counting sort keeps it), `bincount` gives the
-partition sizes, and those are the one host read per batch.  Each
-non-empty partition's rows become one block, a port `Batch` that stays
-on the device.
+Rows are grouped by partition on the device, the analogue of the JAX
+writer's host counting sort (`native/bindings.py::partition_sort`):
+- the partition sizes come from the hand-written radix-histogram kernel
+  (`kernels_cuda.radix_bucket_hist`): each partition id goes into the top
+  b = ceil_log2(n_parts) bits of a u32 word, and the kernel's per-tile
+  counts, summed over the tiles, are the sizes.  That is the kernel's
+  contract for n_parts <= 256 (Spark's default 200 gives b = 8); above
+  it the writer counts with `torch.bincount`, a route fixed by n_parts
+  when the writer is built.  The metrics `sizes_by_hist` and
+  `sizes_by_bincount` count the batches of each route;
+- the permutation is one stable sort of the ids, so rows keep their
+  input order inside a partition, as `partition_sort` keeps it;
+- the sizes are the one host read per batch.
+Each non-empty partition's rows become one block: a view of the batch's
+partition-sorted columns, unpadded (its capacity is its row count), that
+stays on the device.
 
 The JAX package frames blocks as Arrow-IPC/v2 bytes (columnar/serde.py),
 which needs pyarrow; here a block is pushed as the `Batch` itself, and
@@ -23,11 +33,13 @@ import numpy as np
 import torch
 
 from auron_tpu_torch.columnar.batch import (
-    Batch, DeviceColumn, bucket_capacity, from_numpy,
+    Batch, DeviceColumn, bucket_capacity, concat_batches, from_numpy,
 )
 from auron_tpu_torch.ir.plan import Partitioning
 from auron_tpu_torch.ir.schema import DataType, Field, Schema
 from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.ops.kernels_cuda import HIST_MAX_BITS, radix_bucket_hist
+from auron_tpu_torch.ops.radix_sort import ceil_log2
 from auron_tpu_torch.ops.shuffle.partitioner import PartitionIdComputer
 
 
@@ -41,8 +53,28 @@ class RssPartitionWriter:
         pass
 
 
-def _pad(t: torch.Tensor, cap: int) -> torch.Tensor:
-    return torch.nn.functional.pad(t, (0, cap - t.shape[0]))
+def sizes_by_hist(pids: torch.Tensor, n_parts: int) -> np.ndarray:
+    """Rows per partition (int64[n_parts], on the host) of int32 ids in
+    [0, n_parts), n_parts <= 256, from the radix-histogram kernel.
+
+    The words are padded with zeros up to bucket_capacity(n), a multiple
+    of 128 whose tiles are whole; the padding lands in bucket 0 and is
+    subtracted there."""
+    n = int(pids.shape[0])
+    b = ceil_log2(n_parts)
+    cap = bucket_capacity(n)
+    words = torch.zeros(cap, dtype=torch.int32, device=pids.device)
+    # the shift in int64, masked to 32 bits, then the int32 bit view
+    words[:n] = ((pids.to(torch.int64) << (32 - b)) & 0xFFFFFFFF) \
+        .to(torch.int32)
+    sizes = radix_bucket_hist(words, b).sum(0)[:n_parts].cpu().numpy()
+    sizes[0] -= cap - n
+    return sizes
+
+
+def sizes_by_bincount(pids: torch.Tensor, n_parts: int) -> np.ndarray:
+    """Rows per partition for any n_parts, by torch.bincount."""
+    return torch.bincount(pids, minlength=n_parts).cpu().numpy()
 
 
 class RssShuffleWriterExec(Operator):
@@ -55,6 +87,9 @@ class RssShuffleWriterExec(Operator):
         self.partitioning = partitioning
         self.rss_resource_id = rss_resource_id
         self._computer = PartitionIdComputer(partitioning, child.schema)
+        self._sizes = sizes_by_hist if ceil_log2(
+            partitioning.num_partitions) <= HIST_MAX_BITS \
+            else sizes_by_bincount
 
     def _partitioned_stream(self, ctx: TaskContext
                             ) -> Iterator[Tuple[int, Batch]]:
@@ -66,32 +101,33 @@ class RssShuffleWriterExec(Operator):
                 continue
             pids = self._computer(b)
             order = torch.sort(pids, stable=True).indices
-            counts = torch.bincount(pids, minlength=n_parts).cpu().numpy()
-            offsets = np.concatenate([[0], np.cumsum(counts)])
+            sizes = self._sizes(pids, n_parts)
+            self.count(self._sizes.__name__)
             self.count("shuffle_write_batches")
             self.count("shuffle_write_rows", n)
-            cols = [DeviceColumn(c.dtype, c.data[order], c.validity[order])
-                    for c in b.columns]
-            for pid in np.flatnonzero(counts):
-                lo, hi = int(offsets[pid]), int(offsets[pid + 1])
-                cap = bucket_capacity(hi - lo)
+            split = sizes.tolist()
+            parts = [(c.data[order].split(split),
+                      c.validity[order].split(split)) for c in b.columns]
+            for pid in np.flatnonzero(sizes):
+                rows = int(sizes[pid])
                 yield int(pid), Batch(b.schema, [
-                    DeviceColumn(c.dtype, _pad(c.data[lo:hi], cap),
-                                 _pad(c.validity[lo:hi], cap))
-                    for c in cols], hi - lo, cap)
+                    DeviceColumn(c.dtype, d[pid], v[pid])
+                    for c, (d, v) in zip(b.columns, parts)], rows, rows)
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
         writer: RssPartitionWriter = ctx.resources.get(self.rss_resource_id)
         n_parts = self.partitioning.num_partitions
         rows = np.zeros(n_parts, np.int64)
-        nbytes = np.zeros(n_parts, np.int64)
         for pid, block in self._partitioned_stream(ctx):
             writer.write(pid, block)
             rows[pid] += block.num_rows
-            nbytes[pid] += block.mem_bytes()
         writer.flush()
+        # blocks hold their rows unpadded: data and validity bytes per row
+        row_bytes = sum(torch.empty(0, dtype=f.dtype.torch_dtype())
+                        .element_size() + 1 for f in self.children[0].schema)
         yield from_numpy(self.schema, [np.arange(n_parts, dtype=np.int32),
-                                       nbytes, rows], device=ctx.device)
+                                       rows * row_bytes, rows],
+                         device=ctx.device)
 
 
 class InProcessShuffleService:
@@ -116,7 +152,12 @@ class InProcessShuffleService:
 
 class _InProcessWriter(RssPartitionWriter):
     """Stages locally and commits in flush(): a map task run again
-    replaces the blocks an earlier attempt of the same map left."""
+    replaces the blocks an earlier attempt of the same map left.  The
+    commit joins each partition's staged blocks into one, in write
+    order, as a remote shuffle client buffers a partition's pushes: a
+    range exchange writes one small block per (scan batch, partition),
+    and keeping them apart would leave ~88k Python objects per map task
+    for the reduce tasks to walk and the garbage collector to scan."""
 
     def __init__(self, svc: InProcessShuffleService, shuffle_id: str,
                  map_id: int) -> None:
@@ -127,11 +168,14 @@ class _InProcessWriter(RssPartitionWriter):
         self._staged.setdefault(partition_id, []).append(block)
 
     def flush(self) -> None:
+        merged = {pid: blocks[0] if len(blocks) == 1 else
+                  concat_batches(blocks[0].schema, blocks)
+                  for pid, blocks in self._staged.items()}
         with self._svc._lock:
-            for pid, blocks in self._staged.items():
+            for pid, block in merged.items():
                 entries = self._svc._blocks.setdefault((self._sid, pid), [])
                 entries[:] = [e for e in entries if e[0] != self._map_id]
-                entries.extend((self._map_id, b) for b in blocks)
+                entries.append((self._map_id, block))
         self._staged = {}
 
 

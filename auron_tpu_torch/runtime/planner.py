@@ -12,6 +12,7 @@ from auron_tpu_torch.ops.base import Operator
 from auron_tpu_torch.ops.basic import ProjectExec
 from auron_tpu_torch.ops.scan.ipc import FFIReaderExec, IpcReaderExec
 from auron_tpu_torch.ops.shuffle.writer import RssShuffleWriterExec
+from auron_tpu_torch.ops.sort import SortExec
 
 
 class PhysicalPlanner:
@@ -25,6 +26,9 @@ class PhysicalPlanner:
                 self.create_plan(n.child), n.exec_mode, n.grouping,
                 n.grouping_names, n.aggs, n.agg_names,
                 n.supports_partial_skipping),
+            "sort": lambda n: SortExec(
+                self.create_plan(n.child), n.sort_exprs, n.fetch_limit,
+                n.fetch_offset),
             "rss_shuffle_writer": lambda n: RssShuffleWriterExec(
                 self.create_plan(n.child), n.partitioning,
                 n.rss_resource_id),

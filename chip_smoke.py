@@ -7,7 +7,8 @@ Needs one CUDA card and the CUDA toolkit; builds the port's kernels from
 the sources in this checkout.  Phases, each fatal on failure:
 
 1. print the card (`nvidia-smi` name and power limit) and CUDA version,
-   build the hash-pid kernel and print the build time;
+   build both kernels (hash-pid and radix histogram, one nvcc each,
+   started together) and print the build time;
 2. hold the kernel bit-exact against its plain PyTorch version on the
    card, on full-range int64 keys with 10% nulls and on all-null keys;
 3. run the TPC-DS shuffled group-by stage pair at SF 10 size through the
@@ -15,13 +16,32 @@ the sources in this checkout.  Phases, each fatal on failure:
    (FFIReader -> Projection -> partial Agg -> RssShuffleWriter, hash on
    ss_customer_sk into 200 partitions) and 200 reduce tasks (IpcReader ->
    final Agg), check the result against a numpy group-by and check that
-   every map-side batch went through the kernel;
+   every map-side batch went through the hash-pid kernel once and the
+   radix-histogram kernel (the writer's partition sizes) once;
 4. time the kernel and its plain version (CUDA events and the
    profiler's kernel durations);
 5. profile one map task: wall time, device busy time and idle share,
-   the top kernels and host ops.
-It prints one JSON line describing each kernel, then, as the last line,
-{"ok": true, "device": {...}}.
+   the top kernels and host ops;
+6. hold the radix-histogram kernel bit-exact against its plain version
+   on the card: n in {128, 8192, 144000, 2^24} x b_bits in {0, 1, 6, 8},
+   and the writer's partition sizes at n_parts 7 and 200 on row counts
+   that are not multiples of 128;
+7. run the global-sort stage pair on the same rows through
+   `execute_task_bytes`: 8 map tasks (FFIReader -> Projection ->
+   RssShuffleWriter, range partitioning into 200 partitions by bounds
+   sampled as Spark's RangePartitioner samples) and 200 reduce tasks
+   (IpcReader -> Sort, ORDER BY ss_sales_price DESC NULLS LAST,
+   ss_customer_sk ASC NULLS FIRST); check that the partitions in id order
+   equal numpy's stable lexsort under Spark's ordering, that every row
+   lies inside its partition's bounds, that every map-side batch went
+   through the radix-histogram kernel once, and that every reduce sort
+   ran in the form `sort_strategy` resolves for the card;
+8. time the radix-histogram kernel at the writer's shapes against its
+   plain version, its memory bound and `torch.bincount`, and a reduce
+   task's sort under both strategies (pack-sort and multipass);
+9. profile one sort map task and one sort reduce task.
+It prints the card's line and one JSON line describing each kernel, then,
+as the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,6 +64,10 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 NONTENSOR_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 PID_BYTES_PER_ROW = 13               # 8 key + 1 validity + 4 pid
 PID_OPS_PER_ROW = 36                 # murmur3 mixes, fmix, null select, pmod
+HIST_B_BITS = 8                      # ceil_log2(200 partitions)
+HIST_OPS_PER_WORD = 3                # shift, bucket address, shared add
+SAMPLE_POINTS_PER_PARTITION = 20     # Spark RangePartitioner's sample hint
+SCAN_BATCH = 8192                    # auron.batch.size: a range map batch
 
 
 def card_line() -> str:
@@ -159,8 +183,9 @@ def stage_plans():
     return map_plan, reduce_plan
 
 
-def map_task(m: int, cols, valid, svc, dev):
-    """Map task m through execute_task_bytes, writing into `svc`."""
+def map_task(m: int, cols, valid, svc, dev, plan=None, shuffle_id="ss"):
+    """Map task m of `plan` (default: the group-by map plan) through
+    execute_task_bytes, writing into `svc` under `shuffle_id`."""
     from auron_tpu_torch.config import conf
     from auron_tpu_torch.ir import plan as P
     from auron_tpu_torch.ir import serde
@@ -175,8 +200,8 @@ def map_task(m: int, cols, valid, svc, dev):
         ([c[s:min(s + bs, hi)] for c in cols],
          [v[s:min(s + bs, hi)] for v in valid])
         for s in range(lo, hi, bs)])
-    res.put("shuffle_writer", svc.rss_writer("ss", m))
-    task = P.TaskDefinition(plan=stage_plans()[0], stage_id=1,
+    res.put("shuffle_writer", svc.rss_writer(shuffle_id, m))
+    task = P.TaskDefinition(plan=plan or stage_plans()[0], stage_id=1,
                             partition_id=m, num_partitions=N_MAPS)
     return execute_task_bytes(serde.serialize(task), res, device=dev)
 
@@ -237,35 +262,43 @@ def profiled_ms(fn, iters: int = 25):
     return us / iters / 1e3 if us > 0 else None
 
 
-def profile_map_task(cols, valid, dev, card: str) -> None:
-    """Phase 5: where one map task's time goes: wall time, summed device
-    time and the device's idle share, the top kernels and host ops."""
-    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+def profile_task(label: str, fn, card: str) -> None:
+    """Where one task's time goes: wall time, summed device time and the
+    device's idle share, the top kernels and host ops."""
+    from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        map_task(0, cols, valid, InProcessShuffleService(), dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = _device_us(prof) / 1e6
-    print(f"phase 5: map task 0 under the profiler: wall {wall:.3f} s, "
-          f"device busy {busy:.3f} s, idle share {1 - busy / wall:.3f} "
+    phase = label.split(":")[0]
+    print(f"{label} under the profiler: wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f} "
           f"| {card}")
-    from torch.autograd import DeviceType
     avgs = prof.key_averages()
     dev_rows = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
                       key=lambda e: -(getattr(e, "self_device_time_total",
                                               0.0) or 0.0))[:8]
     for e in dev_rows:
-        print(f"phase 5:   device {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"{phase}:   device {e.self_device_time_total / 1e3:9.4f} ms "
               f"x{e.count:<6d} {e.key[:70]}")
     cpu_rows = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)[:12]
     for e in cpu_rows:
-        print(f"phase 5:   host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+        print(f"{phase}:   host   {e.self_cpu_time_total / 1e3:9.4f} ms "
               f"x{e.count:<6d} {e.key[:70]}")
+
+
+def profile_map_task(cols, valid, dev, card: str) -> None:
+    """Phase 5: where one group-by map task's time goes."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    profile_task("phase 5: map task 0",
+                 lambda: map_task(0, cols, valid, InProcessShuffleService(),
+                                  dev), card)
 
 
 def check_result(outs, cols, valid, K, dev) -> int:
@@ -309,6 +342,330 @@ def check_result(outs, cols, valid, K, dev) -> int:
     return len(uk)
 
 
+
+# ---------------------------------------------------------------------------
+# the radix-histogram kernel (phases 6 and 8)
+# ---------------------------------------------------------------------------
+
+def hist_words(rng, n: int, dev, n_parts: int = 0):
+    """n u32 words as the int32 bit view the kernel takes: uniform over
+    all 32 bits, or, with n_parts, ids in [0, n_parts) in the top
+    ceil_log2(n_parts) bits as the shuffle writer builds them."""
+    if n_parts:
+        from auron_tpu_torch.ops.radix_sort import ceil_log2
+        u = rng.integers(0, n_parts, n).astype(np.uint64) << \
+            np.uint64(32 - ceil_log2(n_parts))
+    else:
+        u = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    return torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def hist_bound(cap: int, b_bits: int):
+    """(least time in ms, "bytes" or "operations") for cap words: each
+    word read once, the [n_tiles, 2^b] int32 counts written once."""
+    from auron_tpu_torch.ops.kernels_cuda import LANES, hist_tile_rows
+    n_tiles = cap // (hist_tile_rows(cap) * LANES)
+    by_bytes = (4 * cap + 4 * n_tiles * (1 << b_bits)) / HBM_BYTES_PER_S * 1e3
+    by_ops = cap * HIST_OPS_PER_WORD / NONTENSOR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else \
+        (by_ops, "operations")
+
+
+def hist_library_input(words, b_bits: int):
+    """tile_id * 2^b + digit of every word: the index whose
+    torch.bincount is the histogram (the library yardstick)."""
+    from auron_tpu_torch.ops.kernels_cuda import LANES, hist_tile_rows
+    cap = words.shape[0]
+    tile = hist_tile_rows(cap) * LANES
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    digit = u >> (32 - b_bits) if b_bits else torch.zeros_like(u)
+    tile_id = torch.arange(cap, device=words.device) // tile
+    return tile_id * (1 << b_bits) + digit, (cap // tile) << b_bits
+
+
+def check_hist_kernel(K, dev, rng) -> int:
+    """Phase 6: kernel == plain version, bit for bit, on the Pallas
+    contract's shapes and on the shuffle writer's; returns the largest
+    absolute count difference seen (0)."""
+    from auron_tpu_torch.ops.shuffle import writer as W
+    worst = 0
+    for n in (128, 8192, 144_000, 1 << 24):
+        words = hist_words(rng, n, dev)
+        for b in (0, 1, 6, 8):
+            got = K.radix_bucket_hist(words, b)
+            exp = K.radix_bucket_hist_plain(words, b)
+            torch.cuda.synchronize()
+            err = int((got.long() - exp.long()).abs().max())
+            worst = max(worst, err)
+            if err or got.shape != exp.shape or int(got.sum()) != n:
+                raise AssertionError(f"radix-hist kernel != plain at n={n} "
+                                     f"b_bits={b}: max err {err}")
+    for n in (8192, 1000, 8191, 499_499):
+        for n_parts in (7, 200):
+            pids = torch.from_numpy(rng.integers(0, n_parts, n)
+                                    .astype(np.int32)).to(dev)
+            got = W.sizes_by_hist(pids, n_parts)
+            exp = torch.bincount(pids, minlength=n_parts).cpu().numpy()
+            err = int(np.abs(got - exp).max())
+            worst = max(worst, err)
+            if err:
+                raise AssertionError(f"writer sizes != bincount at n={n} "
+                                     f"n_parts={n_parts}")
+    print("phase 6: radix-hist kernel bit-exact with its plain version "
+          "(n in 128, 8192, 144000, 2^24 x b_bits 0, 1, 6, 8); writer "
+          "sizes exact at n in 8192, 1000, 8191, 499499 x n_parts 7, 200")
+    return worst
+
+
+def time_hist(K, dev, rng, cap: int, n_parts: int, card: str):
+    """Phase 8: the kernel at one of the writer's shapes; returns its
+    JSON numbers and the largest difference from the plain version."""
+    words = hist_words(rng, cap, dev, n_parts)
+    b = HIST_B_BITS
+    idx, length = hist_library_input(words, b)
+    kernel = lambda: K.radix_bucket_hist(words, b)  # noqa: E731
+    plain = lambda: K.radix_bucket_hist_plain(words, b)  # noqa: E731
+    library = lambda: torch.bincount(idx, minlength=length)  # noqa: E731
+    err = int((kernel().long() - plain().long()).abs().max())
+    lib_err = int((kernel().long().view(-1) - library()).abs().max())
+    if err or lib_err:
+        raise AssertionError(f"radix-hist kernel != plain/bincount at "
+                             f"cap={cap}")
+    ev = {k: median_ms(f) for k, f in
+          (("kernel", kernel), ("plain", plain), ("library", library))}
+    pr = {k: profiled_ms(f) for k, f in
+          (("kernel", kernel), ("plain", plain), ("library", library))}
+    bound, bound_by = hist_bound(cap, b)
+    print(f"phase 8: radix-hist cap={cap} b_bits={b}: kernel "
+          f"{ev['kernel']:.5f} ms by events, {pr['kernel']} ms by "
+          f"profiler; plain {ev['plain']:.5f} / {pr['plain']} ms; "
+          f"torch.bincount {ev['library']:.5f} / {pr['library']} ms; "
+          f"bound {bound:.6f} ms ({bound_by}) | {card}")
+    # the profiler's kernel durations where the trace has them: the event
+    # window of one small launch also holds the host's launch overhead
+    return {"ms": pr["kernel"] or ev["kernel"],
+            "plain_ms": pr["plain"] or ev["plain"],
+            "library_ms": pr["library"] or ev["library"],
+            "bound_ms": bound, "bound_by": bound_by}, err
+
+
+# ---------------------------------------------------------------------------
+# the global-sort stage pair (phases 7 to 9)
+# ---------------------------------------------------------------------------
+
+def spark_lexsort_keys(cols, valid, orders):
+    """np.lexsort keys (least significant first) that order rows of
+    numeric key columns as Spark orders them: per key a null rank (nulls
+    first or last) and the value, negated for a descending key; -0.0 and
+    0.0 compare equal."""
+    keys = []
+    for c, v, (asc, nulls_first) in zip(cols, valid, orders):
+        rank = v if nulls_first else ~v
+        keys += [rank.astype(np.int8), np.where(v, c if asc else -c, 0)]
+    return keys[::-1]
+
+
+def range_bounds(cols, valid, orders, n_parts: int, n_maps: int,
+                 seed: int):
+    """The range bounds as Spark's RangePartitioner computes them:
+    sampleSize = min(20 x partitions, 1e6) points, ceil(3 x sampleSize /
+    splits) sampled from each split (rows cut into n_maps equal splits),
+    each weighted by split rows / its sample count, then determineBounds:
+    walk the weighted candidates in key order and take a bound each time
+    the cumulative weight passes the next step, skipping duplicates.
+    Returns up to n_parts - 1 bound rows of Python values (None = null)."""
+    import math
+    rows = len(cols[0])
+    sample_size = min(float(SAMPLE_POINTS_PER_PARTITION * n_parts), 1e6)
+    per_split = math.ceil(3.0 * sample_size / n_maps)
+    rng = np.random.default_rng(seed)
+    idx, weight = [], []
+    for m in range(n_maps):
+        lo, hi = m * rows // n_maps, (m + 1) * rows // n_maps
+        k = min(per_split, hi - lo)
+        idx.append(lo + rng.choice(hi - lo, k, replace=False))
+        weight.append(np.full(k, (hi - lo) / k, dtype=np.float32))
+    idx, weight = np.concatenate(idx), np.concatenate(weight)
+    cols, valid = [c[idx] for c in cols], [v[idx] for v in valid]
+    keys = spark_lexsort_keys(cols, valid, orders)
+    order = np.lexsort(keys)
+    key_rows = np.stack([k.astype(np.float64) for k in keys[::-1]], 1)
+    step = float(weight.astype(np.float64).sum()) / n_parts
+    cum, target, prev, bounds = 0.0, step, None, []
+    for j in order:
+        if len(bounds) == n_parts - 1:
+            break
+        cum += float(weight[j])
+        if cum >= target and (prev is None or
+                              tuple(key_rows[j]) != prev):
+            bounds.append(tuple(c[j].item() if v[j] else None
+                                for c, v in zip(cols, valid)))
+            target += step
+            prev = tuple(key_rows[j])
+    return tuple(bounds)
+
+
+def sort_stage_plans(bounds):
+    """(map plan, reduce plan) of the global sort, in the port's IR."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    schema = Schema.of(Field("ss_customer_sk", DataType.int64()),
+                       Field("ss_quantity", DataType.int32()),
+                       Field("ss_sales_price", DataType.float64()))
+    orders = (E.SortExpr(child=E.col("ss_sales_price"), asc=False,
+                         nulls_first=False),
+              E.SortExpr(child=E.col("ss_customer_sk"), asc=True,
+                         nulls_first=True))
+    names = tuple(f.name for f in schema)
+    map_plan = P.RssShuffleWriter(
+        child=P.Projection(
+            child=P.FFIReader(schema=schema, resource_id="store_sales"),
+            exprs=tuple(E.col(n) for n in names), names=names),
+        partitioning=P.Partitioning(mode="range", num_partitions=N_REDUCE,
+                                    sort_orders=orders,
+                                    range_bounds=bounds),
+        rss_resource_id="shuffle_writer")
+    reduce_plan = P.Sort(child=P.IpcReader(schema=schema,
+                                           resource_id="shuffle_read"),
+                         sort_exprs=orders)
+    return map_plan, reduce_plan
+
+
+def sort_reduce_task(p: int, svc, reduce_plan, dev):
+    """Reduce task p of the global sort through execute_task_bytes."""
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.ops.shuffle.writer import PartitionedBlocks
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    res = ResourceRegistry()
+    blocks = [[] for _ in range(N_REDUCE)]
+    blocks[p] = svc.reduce_blocks("sort", p)
+    res.put("shuffle_read", PartitionedBlocks(blocks))
+    task = P.TaskDefinition(plan=reduce_plan, stage_id=4,
+                            partition_id=p, num_partitions=N_REDUCE)
+    return execute_task_bytes(serde.serialize(task), res, device=dev)
+
+
+def run_sort_stage_pair(cols, valid, plans, dev):
+    """Phase 7: the global-sort stage pair.  Returns the shuffle service
+    (it keeps the blocks for phases 8 and 9), the map results, the reduce
+    outputs, the reduce tasks' metrics and the two stages' seconds."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    map_plan, reduce_plan = plans
+    svc = InProcessShuffleService()
+    t0 = time.perf_counter()
+    map_results = [map_task(m, cols, valid, svc, dev, map_plan, "sort")
+                   for m in range(N_MAPS)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs, metrics = [], []
+    for p in range(N_REDUCE):
+        r = sort_reduce_task(p, svc, reduce_plan, dev)
+        outs.append(r.to_numpy())
+        metrics.append(r.metrics)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return svc, map_results, outs, metrics, t1 - t0, t2 - t1
+
+
+def _lex_less(a, b):
+    """Row-wise lexicographic a < b and a == b over key lists (most
+    significant first)."""
+    lt = np.zeros(len(a[0]), bool)
+    eq = np.ones(len(a[0]), bool)
+    for x, y in zip(a, b):
+        lt |= eq & (x < y)
+        eq &= x == y
+    return lt, eq
+
+
+def check_sort_result(outs, cols, valid, bounds) -> list:
+    """The partitions in id order equal numpy's stable lexsort of the
+    input under Spark's ordering (every column, nulls included), and each
+    row lies inside its partition's bounds: bound[p-1] < row <= bound[p].
+    Returns the rows per partition."""
+    names = ("ss_customer_sk", "ss_quantity", "ss_sales_price")
+    orders = ((False, False), (True, True))
+    sk, _qty, price = cols
+    key_cols, key_valid = [price, sk], [valid[2], valid[0]]
+    order = np.lexsort(spark_lexsort_keys(key_cols, key_valid, orders))
+    sizes = [len(o[names[0]][0]) for o in outs]
+    for i, name in enumerate(names):
+        got_d = np.concatenate([o[name][0] for o in outs])
+        got_v = np.concatenate([o[name][1] for o in outs])
+        exp_v = valid[i][order]
+        exp_d = np.where(exp_v, cols[i][order], 0)
+        if not (np.array_equal(got_v, exp_v) and
+                np.array_equal(got_d, exp_d)):
+            raise AssertionError(f"sorted column {name} differs from "
+                                 f"numpy's stable lexsort")
+    got = [np.concatenate([o[n][0] for o in outs]) for n in names]
+    got_valid = [np.concatenate([o[n][1] for o in outs]) for n in names]
+    rows = spark_lexsort_keys([got[2], got[0]],
+                              [got_valid[2], got_valid[0]], orders)[::-1]
+    b_cols = [np.array([0.0 if r[0] is None else r[0] for r in bounds]),
+              np.array([0 if r[1] is None else r[1] for r in bounds])]
+    b_valid = [np.array([r[0] is not None for r in bounds]),
+               np.array([r[1] is not None for r in bounds])]
+    b_keys = spark_lexsort_keys(b_cols, b_valid, orders)[::-1]
+    pid = np.repeat(np.arange(len(outs)), sizes)
+    lower = pid > 0
+    if lower.any():
+        lb = [k[pid[lower] - 1] for k in b_keys]
+        lt, _ = _lex_less(lb, [k[lower] for k in rows])
+        if not lt.all():
+            raise AssertionError("a row is not above its lower bound")
+    upper = pid < len(bounds)
+    if upper.any():
+        ub = [k[pid[upper]] for k in b_keys]
+        lt, eq = _lex_less([k[upper] for k in rows], ub)
+        if not (lt | eq).all():
+            raise AssertionError("a row is above its upper bound")
+    return sizes
+
+
+def time_reduce_sort(svc, dev, card: str):
+    """Phase 8: one reduce task's sort (partition 0's rows, their keys
+    encoded once) under the pack-sort and under the multipass argsort;
+    both must give the same permutation."""
+    from auron_tpu_torch.columnar.batch import concat_batches
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.ops import sort_keys as SK
+    blocks = svc.reduce_blocks("sort", 0)
+    b = concat_batches(blocks[0].schema, blocks)
+    key_cols = [b.columns[2], b.columns[0]]
+    words = SK.encode_sort_keys(key_cols, ((False, False), (True, True)))
+    bits = SK.encode_sort_keys_bits(key_cols)
+    perms, ms = {}, {}
+    for name, strategy in (("pack-sort", "radix"),
+                           ("multipass", "argsort")):
+        with conf.scoped({"auron.kernel.sort.strategy": strategy,
+                          "auron.sort.multipass.enable": "on"}):
+            fn = lambda: SK.lexsort_indices(  # noqa: E731
+                words, b.num_rows, b.capacity, bits)
+            perms[name] = fn()
+            ms[name] = (median_ms(fn, iters=11), profiled_ms(fn, iters=5))
+    if not torch.equal(perms["pack-sort"], perms["multipass"]):
+        raise AssertionError("pack-sort and multipass permutations differ")
+    for name, (ev, pr) in ms.items():
+        print(f"phase 8: reduce sort of partition 0 ({b.num_rows} rows, "
+              f"capacity {b.capacity}, {len(words)} words) by {name}: "
+              f"{ev:.5f} ms by events, {pr} ms by profiler | {card}")
+
+
+def profile_sort_tasks(cols, valid, svc, plans, dev, card: str) -> None:
+    """Phase 9: one sort map task and one sort reduce task."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    scratch = InProcessShuffleService()
+    profile_task("phase 9: sort map task 0",
+                 lambda: map_task(0, cols, valid, scratch, dev, plans[0],
+                                  "sort"), card)
+    profile_task("phase 9: sort reduce task 0",
+                 lambda: sort_reduce_task(0, svc, plans[1], dev), card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=SF10_STORE_SALES_ROWS)
@@ -348,13 +705,19 @@ def main() -> int:
         raise AssertionError(f"hash-pid kernel launched "
                              f"{launches['hash_partition_ids_i64']} times "
                              f"for {pushed} map-side batches")
+    if launches["radix_bucket_hist"] != pushed:
+        raise AssertionError(f"radix-hist kernel launched "
+                             f"{launches['radix_bucket_hist']} times for "
+                             f"{pushed} map-side batches")
     groups = check_result(outs, cols, valid, K, dev)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3: map stage {map_s:.3f} s ({args.rows / map_s:.0f} "
           f"rows/s), reduce stage {reduce_s:.3f} s ({written / reduce_s:.0f} "
           f"partial rows/s), {groups} groups equal to numpy, "
           f"{pushed} map-side batches = {launches['hash_partition_ids_i64']} "
-          f"kernel launches, peak {peak / 2**30:.3f} GiB | {card}")
+          f"hash-pid launches = {launches['radix_bucket_hist']} radix-hist "
+          f"launches, peak {peak / 2**30:.3f} GiB | {card}")
+    del outs, map_results
 
     main_n = written // pushed
     timings = {}
@@ -380,14 +743,83 @@ def main() -> int:
     k_ms, p_ms = timings[main_n]
     bound_ms, bound_by = pid_bound(main_n)
     profile_map_task(cols, valid, dev, card)
+
+    hist_err = check_hist_kernel(K, dev, rng)
+
+    from auron_tpu_torch.columnar.batch import bucket_capacity
+    from auron_tpu_torch.ops import sort_keys as SK
+    from auron_tpu_torch.ops.strategy import sort_strategy
+    t = time.perf_counter()
+    sort_cols, sort_valid = [cols[2], cols[0]], [valid[2], valid[0]]
+    bounds = range_bounds(sort_cols, sort_valid, ((False, False),
+                                                  (True, True)),
+                          N_REDUCE, N_MAPS, args.seed)
+    print(f"phase 7: {len(bounds)} range bounds sampled in "
+          f"{time.perf_counter() - t:.2f} s")
+    plans = sort_stage_plans(bounds)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    svc, sort_maps, sort_outs, sort_metrics, smap_s, sred_s = \
+        run_sort_stage_pair(cols, valid, plans, dev)
+    sort_launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sort_pushed = sum(r.metrics.get("shuffle_write_batches", 0)
+                      for r in sort_maps)
+    if sort_launches["radix_bucket_hist"] != sort_pushed or not sort_pushed:
+        raise AssertionError(f"radix-hist kernel launched "
+                             f"{sort_launches['radix_bucket_hist']} times "
+                             f"for {sort_pushed} map-side batches")
+    if sort_launches["hash_partition_ids_i64"]:
+        raise AssertionError("the range exchange launched the hash kernel")
+    t = time.perf_counter()
+    sizes = check_sort_result(sort_outs, cols, valid, bounds)
+    check_s = time.perf_counter() - t
+    strategy = sort_strategy(bucket_capacity(max(sizes)), 4, dev.type)
+    form = SK.sort_form(bucket_capacity(max(sizes)), 4, dev.type)
+    for n, m in zip(sizes, sort_metrics):
+        ran = {k: v for k, v in m.items() if k.startswith("sorted_by_")}
+        if ran != ({f"sorted_by_{form}": 1} if n else {}):
+            raise AssertionError(f"a reduce task of {n} rows sorted as "
+                                 f"{ran}, want one {form} sort")
+    nonempty = sum(1 for n in sizes if n)
+    print(f"phase 7: map stage {smap_s:.3f} s ({args.rows / smap_s:.0f} "
+          f"rows/s), reduce stage {sred_s:.3f} s ({args.rows / sred_s:.0f} "
+          f"rows/s), {args.rows} rows equal to numpy's stable lexsort and "
+          f"inside their partitions' bounds (checked in {check_s:.1f} s), "
+          f"reduce tasks of {min(sizes)}..{max(sizes)} rows, "
+          f"{sort_pushed} map-side batches = "
+          f"{sort_launches['radix_bucket_hist']} radix-hist launches, "
+          f"0 hash-pid launches, {nonempty} reduce sorts by "
+          f"'{strategy}' as {form}, peak {peak / 2**30:.3f} GiB | {card}")
+    del sort_outs, sort_maps, sort_metrics
+
+    hist_json, err = time_hist(K, dev, rng, SCAN_BATCH, N_REDUCE, card)
+    hist_err = max(hist_err, err)
+    _, err = time_hist(K, dev, rng, bucket_capacity(main_n), N_REDUCE, card)
+    hist_err = max(hist_err, err)
+    time_reduce_sort(svc, dev, card)
+    profile_sort_tasks(cols, valid, svc, plans, dev, card)
+
     print(json.dumps({"kernels": [{
         "name": "hash_partition_ids_i64", "route": "cuda",
         "source": "auron_tpu_torch/csrc/hash_pid.cu",
         "replaces": "auron_tpu/ops/kernels_pallas.py:89",
         "launches": launches["hash_partition_ids_i64"],
+        "launches_by_path": {
+            "hash_group_by": launches["hash_partition_ids_i64"],
+            "global_sort": sort_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "radix_bucket_hist", "route": "cuda",
+        "source": "auron_tpu_torch/csrc/radix_hist.cu",
+        "replaces": "auron_tpu/ops/kernels_pallas.py:158",
+        "launches": sort_launches["radix_bucket_hist"],
+        "launches_by_path": {
+            "hash_group_by": launches["radix_bucket_hist"],
+            "global_sort": sort_launches["radix_bucket_hist"]},
+        "max_abs_err": hist_err, **hist_json}]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Rules of the port: auron_tpu_torch and chip_smoke.py import nothing of
 JAX or the JAX package, pyarrow and zstandard only inside functions; the
-entry points run on the card unless asked for the CPU; the kernel wrapper
-launches or raises on a CUDA tensor and never falls back."""
+entry points run on the card unless asked for the CPU; the kernel
+wrappers launch or raise on a CUDA tensor and never fall back."""
 
 import ast
 import pathlib
@@ -54,7 +54,9 @@ def test_port_file_imports(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"kernels_cuda.py", "executor.py", "chip_smoke.py"} <= names
+    assert {"kernels_cuda.py", "executor.py", "chip_smoke.py", "sort.py",
+            "sort_keys.py", "radix_sort.py", "strategy.py",
+            "partitioner.py", "writer.py"} <= names
 
 
 def test_import_leaves_jax_out():
@@ -139,3 +141,45 @@ def test_kernel_wrapper_checks_its_inputs(bad):
         n_parts = 0
     with pytest.raises((TypeError, ValueError)):
         K.hash_partition_ids_i64(data, valid, n_parts)
+
+
+def test_radix_hist_wrapper_never_falls_back(monkeypatch):
+    """A CUDA tensor goes to the histogram kernel or raises; here, with no
+    toolkit and no card, it raises and the plain version is not called."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        words = torch.empty(8192, dtype=torch.int32, device="cuda")
+    called = []
+    monkeypatch.setattr(K, "radix_bucket_hist_plain",
+                        lambda *a: called.append(a))
+    monkeypatch.setattr(K, "_libs", {})
+    before = dict(K.LAUNCHES)
+    with pytest.raises(Exception):
+        K.radix_bucket_hist(words, 8)
+    assert not called
+    assert K.LAUNCHES == before
+    with pytest.raises(ValueError, match="device"):
+        K.radix_bucket_hist(torch.empty(128, dtype=torch.int32,
+                                        device="meta"), 8)
+    assert not called
+
+
+@pytest.mark.parametrize("bad", ["dtype", "dim", "length", "empty",
+                                 "contiguous", "b_bits"])
+def test_radix_hist_wrapper_checks_its_inputs(bad):
+    words = torch.zeros(256, dtype=torch.int32)
+    b_bits = 8
+    if bad == "dtype":
+        words = words.to(torch.int64)
+    elif bad == "dim":
+        words = words.view(2, 128)
+    elif bad == "length":
+        words = words[:200]
+    elif bad == "empty":
+        words = words[:0]
+    elif bad == "contiguous":
+        words = torch.zeros(512, dtype=torch.int32)[::2]
+    else:
+        b_bits = 9
+    with pytest.raises((TypeError, ValueError)):
+        K.radix_bucket_hist(words, b_bits)

@@ -141,3 +141,36 @@ def assert_same_groups(got, exp, float_names=("sum_sales",),
                 assert abs(gv - ev) <= 1e-9 * abs(ev), (k, name, gv, ev)
             else:
                 assert gv == ev, (k, name, gv, ev)
+
+
+# -- the global-sort stage pair ----------------------------------------------
+
+SORT_NAMES = ("ss_customer_sk", "ss_quantity", "ss_sales_price")
+# ORDER BY ss_sales_price DESC NULLS LAST, ss_customer_sk ASC NULLS FIRST
+SORT_ORDERS = (("ss_sales_price", False, False),
+               ("ss_customer_sk", True, True))
+
+
+def sort_exprs():
+    return tuple(JE.SortExpr(child=JE.col(name), asc=asc, nulls_first=nf)
+                 for name, asc, nf in SORT_ORDERS)
+
+
+def sort_map_plan(n_parts: int, bounds):
+    """FFIReader -> Projection -> RssShuffleWriter(range, bounds)."""
+    return JP.RssShuffleWriter(
+        child=JP.Projection(
+            child=JP.FFIReader(schema=SRC_SCHEMA, resource_id="store_sales"),
+            exprs=tuple(JE.col(n) for n in SORT_NAMES), names=SORT_NAMES),
+        partitioning=JP.Partitioning(
+            mode="range", num_partitions=n_parts, sort_orders=sort_exprs(),
+            range_bounds=bounds),
+        rss_resource_id="shuffle_writer")
+
+
+def sort_reduce_plan(fetch_limit=None, fetch_offset=0):
+    """IpcReader -> Sort."""
+    return JP.Sort(child=JP.IpcReader(schema=SRC_SCHEMA,
+                                      resource_id="shuffle_read"),
+                   sort_exprs=sort_exprs(), fetch_limit=fetch_limit,
+                   fetch_offset=fetch_offset)
