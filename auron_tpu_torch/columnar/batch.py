@@ -165,13 +165,10 @@ def concat_batches(schema: Schema, batches: List[Batch],
         raise ValueError(f"concat capacity {cap} < total rows {total}")
     cols: List[DeviceColumn] = []
     for ci, f in enumerate(schema):
-        # an unpadded batch's columns are its live rows as they are
-        parts = [(b.columns[ci], b.num_rows, b.num_rows == b.capacity)
-                 for b in batches]
-        data = torch.cat([c.data if whole else c.data[:n]
-                          for c, n, whole in parts])
-        valid = torch.cat([c.validity if whole else c.validity[:n]
-                           for c, n, whole in parts])
+        parts = [b.columns[ci] for b in batches]
+        data = torch.cat([p.data[:b.num_rows] for b, p in zip(batches, parts)])
+        valid = torch.cat([p.validity[:b.num_rows]
+                           for b, p in zip(batches, parts)])
         pad = cap - total
         cols.append(DeviceColumn(
             f.dtype, torch.nn.functional.pad(data, (0, pad)),

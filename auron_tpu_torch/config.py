@@ -116,15 +116,3 @@ conf.define(
 conf.define(
     "auron.kernel.sort.radix.min.rows", 1 << 15,
     "Capacity below which 'auto' keeps the argsort form.")
-conf.define(
-    "auron.sort.multipass.enable", "auto",
-    "Form of the argsort strategy: composed stable single-word argsorts "
-    "('on'; 'auto' on the card) or one multi-key lexsort ('off'; 'auto' "
-    "on the CPU).  torch has no multi-key sort, so the port computes "
-    "'off' by the same composition; the permutation is the same.")
-conf.define(
-    "auron.sort.f64.exactbits", "auto",
-    "Exact 64-bit FLOAT64 sort keys on backends that demote float64 "
-    "(the TPU).  torch keeps float64 on the card and the CPU, where every "
-    "setting gives the exact IEEE ordering, so the port never reads it; "
-    "it is defined so that one conf map configures both engines.")

@@ -75,22 +75,6 @@ def _plan_passes(units: List[Tuple[torch.Tensor, int]], budget: int
     return passes
 
 
-def num_passes(bits: Sequence[int], capacity: int,
-               with_live: bool = False) -> int:
-    """How many value sorts the pack-sort needs for this word shape."""
-    budget = 64 - ceil_log2(capacity)
-    bs = ([1] if with_live else []) + list(bits)
-    split: List[int] = []
-    for b in bs:
-        split.extend((b - 32, 32) if b > budget else (b,))
-    n, cur = 0, 0
-    for b in reversed(split):
-        if cur and cur + b > budget:
-            n, cur = n + 1, 0
-        cur += b
-    return n + (1 if cur else 0)
-
-
 def radix_sort_indices(words: Sequence[torch.Tensor],
                        bits: Optional[Sequence[int]] = None,
                        live: Optional[torch.Tensor] = None) -> torch.Tensor:

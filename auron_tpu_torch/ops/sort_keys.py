@@ -18,9 +18,11 @@ and a NaN with its sign bit set before -inf; the port normalises -0.0 to
 0.0 and every NaN to the positive quiet NaN before encoding, which gives
 Spark's order (ROADMAP Queue 3).
 
-`auron.sort.f64.exactbits` has no counterpart here: torch keeps float64
-on the card and the CPU, where the JAX package's two float64 encodings
-are the same bits.
+The JAX package's `auron.sort.f64.exactbits` (an exact float64 encoding
+for backends that demote float64) and `auron.sort.multipass.enable`
+(one multi-key lexsort in place of composed argsorts) have no
+counterpart: torch keeps float64 exact on the card and the CPU, and has
+no multi-key sort, so the argsort strategy is always the composition.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from auron_tpu_torch.columnar.batch import DeviceColumn
-from auron_tpu_torch.config import conf
 from auron_tpu_torch.ir.schema import DataType, TypeId
 from auron_tpu_torch.ops.radix_sort import radix_sort_indices
 from auron_tpu_torch.ops.strategy import sort_strategy
@@ -117,17 +118,6 @@ def lexsort_indices(words: List[torch.Tensor], num_rows: int, capacity: int,
     return lexsort_indices_live(words, live, bits)
 
 
-def multipass_enabled(device_type: str) -> bool:
-    """auron.sort.multipass.enable: 'auto' composes single-word argsorts
-    everywhere except on the CPU."""
-    mode = str(conf.get("auron.sort.multipass.enable"))
-    if mode == "on":
-        return True
-    if mode == "off":
-        return False
-    return device_type != "cpu"
-
-
 def _multipass_lexsort(keys: List[torch.Tensor]) -> torch.Tensor:
     """Composed stable single-word argsorts, least significant key first
     (`keys` as jnp.lexsort takes them: primary key last)."""
@@ -140,12 +130,11 @@ def _multipass_lexsort(keys: List[torch.Tensor]) -> torch.Tensor:
 
 
 def sort_form(capacity: int, n_words: int, device_type: str) -> str:
-    """The form `lexsort_indices_live` sorts in: 'radix' (the pack-sort),
-    'multipass' (composed argsorts) or 'lexsort' (the JAX package's one
-    multi-key sort, which the port computes by the same composition)."""
+    """The form `lexsort_indices_live` sorts in: 'radix' (the pack-sort)
+    or 'multipass' (composed stable argsorts)."""
     if sort_strategy(capacity, max(n_words, 1), device_type) == "radix":
         return "radix"
-    return "multipass" if multipass_enabled(device_type) else "lexsort"
+    return "multipass"
 
 
 def lexsort_indices_live(words: List[torch.Tensor], live: torch.Tensor,

@@ -641,8 +641,7 @@ def time_reduce_sort(svc, dev, card: str):
     perms, ms = {}, {}
     for name, strategy in (("pack-sort", "radix"),
                            ("multipass", "argsort")):
-        with conf.scoped({"auron.kernel.sort.strategy": strategy,
-                          "auron.sort.multipass.enable": "on"}):
+        with conf.scoped({"auron.kernel.sort.strategy": strategy}):
             fn = lambda: SK.lexsort_indices(  # noqa: E731
                 words, b.num_rows, b.capacity, bits)
             perms[name] = fn()

@@ -135,9 +135,10 @@ def _key_set(seed, n=700):
 @pytest.mark.parametrize("strategy", ["radix", "argsort"])
 @pytest.mark.parametrize("num_rows", [700, 513])
 def test_lexsort_permutation_matches_jax(strategy, multipass, num_rows):
+    """The port's one argsort form (composed argsorts) against both of the
+    JAX package's forms, multipass and its one multi-key lexsort."""
     port, jax, orders = _key_set(seed=num_rows)
-    kv = {"auron.kernel.sort.strategy": strategy,
-          "auron.sort.multipass.enable": multipass}
+    kv = {"auron.kernel.sort.strategy": strategy}
     cap = 1024      # rows past 700 are padding, rows past num_rows not live
     padded = [DeviceColumn(c.dtype,
                            torch.nn.functional.pad(c.data, (0, cap - 700)),
@@ -147,7 +148,8 @@ def test_lexsort_permutation_matches_jax(strategy, multipass, num_rows):
     jw = JK.encode_sort_keys([JCol(j.dtype, jnp.asarray(c.data.numpy()),
                                    jnp.asarray(c.validity.numpy()))
                               for j, c in zip(jax, padded)], orders)
-    with conf.scoped(kv), jconf.scoped(kv):
+    with conf.scoped(kv), \
+            jconf.scoped({**kv, "auron.sort.multipass.enable": multipass}):
         got = SK.lexsort_indices(pw, num_rows, cap,
                                  SK.encode_sort_keys_bits(port))
         exp = JK.lexsort_indices(jw, num_rows, cap,
@@ -159,17 +161,16 @@ def test_lexsort_permutation_matches_jax(strategy, multipass, num_rows):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("strategy,multipass,cpu_form,cuda_form", [
-    ("radix", "auto", "radix", "radix"),
-    ("argsort", "on", "multipass", "multipass"),
-    ("argsort", "off", "lexsort", "lexsort"),
-    ("auto", "auto", "lexsort", "multipass")])
-def test_sort_form_names_the_resolved_strategy(strategy, multipass,
+@pytest.mark.parametrize("strategy,capacity,cpu_form,cuda_form", [
+    ("radix", 1024, "radix", "radix"),
+    ("argsort", 1 << 20, "multipass", "multipass"),
+    ("auto", 1024, "multipass", "multipass"),
+    ("auto", 1 << 20, "radix", "multipass")])
+def test_sort_form_names_the_resolved_strategy(strategy, capacity,
                                                cpu_form, cuda_form):
-    with conf.scoped({"auron.kernel.sort.strategy": strategy,
-                      "auron.sort.multipass.enable": multipass}):
-        assert SK.sort_form(1024, 4, "cpu") == cpu_form
-        assert SK.sort_form(1 << 20, 4, "cuda") == cuda_form
+    with conf.scoped({"auron.kernel.sort.strategy": strategy}):
+        assert SK.sort_form(capacity, 4, "cpu") == cpu_form
+        assert SK.sort_form(capacity, 4, "cuda") == cuda_form
 
 
 @pytest.mark.parametrize("with_live", [False, True])
@@ -177,8 +178,6 @@ def test_sort_form_names_the_resolved_strategy(strategy, multipass,
                                   [1, 64, 1, 32, 1, 64], [64, 64, 64]])
 @pytest.mark.parametrize("capacity", [1024, 1 << 20, 1 << 31])
 def test_pass_plan_matches_jax(bits, capacity, with_live):
-    assert R.num_passes(bits, capacity, with_live) == \
-        JR.num_passes(bits, capacity, with_live)
     budget = 64 - R.ceil_log2(capacity)
     bs = ([1] if with_live else []) + bits
     port_units = R._units([torch.zeros(4, dtype=torch.int64)] * len(bs), bs,
@@ -187,8 +186,8 @@ def test_pass_plan_matches_jax(bits, capacity, with_live):
     assert [b for _, b in port_units] == [b for _, b in jax_units]
     got = [[b for _, b in p] for p in R._plan_passes(port_units, budget)]
     exp = [[b for _, b in p] for p in JR._plan_passes(jax_units, budget)]
-    assert got == exp and len(got) == R.num_passes(bits, capacity,
-                                                     with_live)
+    assert got == exp
+    assert len(got) == JR.num_passes(bits, capacity, with_live)
 
 
 @pytest.mark.parametrize("mode", ["auto", "radix", "argsort"])
@@ -203,8 +202,6 @@ def test_sort_strategy_resolves_like_jax(mode, capacity, n_words):
             JS.sort_strategy(capacity, n_words)
         assert S.sort_strategy(capacity, n_words, "cuda") == \
             (mode if mode != "auto" else "argsort")
-    assert SK.multipass_enabled("cpu") == JK.multipass_enabled()
-    assert SK.multipass_enabled("cuda")
 
 
 def test_float_order_is_sparks():

@@ -144,14 +144,14 @@ def test_sort_stage_pair_matches_jax(limit, offset, strategy):
 
 def test_reduce_sort_runs_in_the_resolved_form():
     """On the CPU 'auto' resolves like the JAX CPU backend: pack-sort from
-    auron.kernel.sort.radix.min.rows rows, below it one lexsort; each
-    reduce task's metrics name the form it sorted in."""
+    auron.kernel.sort.radix.min.rows rows, below it composed argsorts;
+    each reduce task's metrics name the form it sorted in."""
     cols, valid = _data(seed=12)
     maps, reduces = _tasks(_bounds(cols, valid), None, 0)
     with conf.scoped({"auron.kernel.sort.radix.min.rows": 1024}):
         _, radix = _run_port(_splits(cols, valid), maps, reduces)
-    _, lexsort = _run_port(_splits(cols, valid), maps, reduces)
+    _, multipass = _run_port(_splits(cols, valid), maps, reduces)
     assert [r.metrics.get("sorted_by_radix") for r in radix] == \
         [1] * N_PARTS
-    assert [r.metrics.get("sorted_by_lexsort") for r in lexsort] == \
+    assert [r.metrics.get("sorted_by_multipass") for r in multipass] == \
         [1] * N_PARTS
