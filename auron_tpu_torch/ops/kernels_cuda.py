@@ -22,7 +22,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -107,7 +107,8 @@ def _load(name: str) -> ctypes.CDLL:
     elif name == "radix_hist":
         fn = lib.auron_radix_bucket_hist
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -177,6 +178,8 @@ def hash_partition_ids_i64(data: torch.Tensor, validity: torch.Tensor,
 LANES = 128
 MAX_TILE_ROWS = 256
 HIST_MAX_BITS = 8            # 2^b_bits <= 256 buckets
+HIST_MAX_CLUSTER = 8         # blocks per tile: the portable cluster size
+VECTOR_BYTES = 16            # the kernel reads the words as uint4
 
 
 def hist_tile_rows(cap: int) -> int:
@@ -187,6 +190,19 @@ def hist_tile_rows(cap: int) -> int:
     while rows % tile_rows:
         tile_rows -= 1
     return tile_rows
+
+
+def hist_launch_shape(cap: int) -> Tuple[int, int, int]:
+    """(tile_rows, cluster, slice_words) of the kernel's launch for `cap`
+    words: each tile of hist_tile_rows(cap) x 128 words is counted by a
+    cluster of `cluster` blocks, the largest power of two <= 8 that
+    divides tile_rows, each block taking `slice_words` consecutive words
+    (a multiple of 128, so a whole number of 16-byte vectors)."""
+    tile_rows = hist_tile_rows(cap)
+    cluster = HIST_MAX_CLUSTER
+    while tile_rows % cluster:
+        cluster //= 2
+    return tile_rows, cluster, tile_rows * LANES // cluster
 
 
 def radix_bucket_hist_plain(words: torch.Tensor, b_bits: int
@@ -208,10 +224,12 @@ def radix_bucket_hist(words: torch.Tensor, b_bits: int) -> torch.Tensor:
 
     words: the u32 words as an int32 tensor holding their bits (a bit
     view: a word >= 2^31 is the negative int32 of the same bits), 1-D,
-    contiguous, cap % 128 == 0.  b_bits in 0..8, else ValueError, as the
-    Pallas kernel.  On a CUDA device this launches the hand-written kernel
-    on the current stream without synchronising; on the CPU it runs the
-    plain version."""
+    contiguous, cap % 128 == 0, starting on a 16-byte boundary (every
+    fresh allocation does; a view such as words[1:] does not).  b_bits in
+    0..8, else ValueError, as the Pallas kernel.  On a CUDA device this
+    launches the hand-written kernel (hist_launch_shape: a cluster of
+    blocks per tile) on the current stream without synchronising; on the
+    CPU it runs the plain version."""
     if not 1 <= (1 << b_bits) <= (1 << HIST_MAX_BITS):
         raise ValueError(f"b_bits {b_bits} outside staging range")
     if words.dim() != 1 or words.dtype != torch.int32:
@@ -223,18 +241,22 @@ def radix_bucket_hist(words: torch.Tensor, b_bits: int) -> torch.Tensor:
                          f"of {LANES}")
     if not words.is_contiguous():
         raise ValueError("words must be contiguous")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no radix-hist kernel for device {words.device}")
+    if words.data_ptr() % VECTOR_BYTES:
+        raise ValueError(f"words must start on a {VECTOR_BYTES}-byte "
+                         f"boundary")
     if words.device.type == "cpu":
         return radix_bucket_hist_plain(words, b_bits)
-    if words.device.type != "cuda":
-        raise ValueError(f"no radix-hist kernel for device {words.device}")
     lib = _library("radix_hist")
-    tile_rows = hist_tile_rows(cap)
+    tile_rows, cluster, _ = hist_launch_shape(cap)
     out = torch.empty((cap // (tile_rows * LANES), 1 << b_bits),
                       dtype=torch.int32, device=words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.auron_radix_bucket_hist(words.data_ptr(), out.data_ptr(),
-                                         cap, tile_rows, b_bits, stream)
+                                         cap, tile_rows, cluster, b_bits,
+                                         stream)
     if rc != 0:
         raise RuntimeError(f"radix_hist kernel launch failed: CUDA error "
                            f"{rc}")

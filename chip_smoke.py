@@ -9,8 +9,11 @@ the sources in this checkout.  Phases, each fatal on failure:
 1. print the card (`nvidia-smi` name and power limit) and CUDA version,
    build both kernels (hash-pid and radix histogram, one nvcc each,
    started together) and print the build time;
-2. hold the kernel bit-exact against its plain PyTorch version on the
-   card, on full-range int64 keys with 10% nulls and on all-null keys;
+2. hold the hash-pid kernel bit-exact against its plain PyTorch version
+   on the card, on full-range int64 keys with 10% nulls (n in 1, 3, 127,
+   1025, 8192, 499499, 2^24+3: its vector path and its tail), on views
+   that start off a 16-byte boundary (its scalar path) and on all-null
+   keys;
 3. run the TPC-DS shuffled group-by stage pair at SF 10 size through the
    task entry point `execute_task_bytes` on the card: 8 map tasks
    (FFIReader -> Projection -> partial Agg -> RssShuffleWriter, hash on
@@ -19,13 +22,16 @@ the sources in this checkout.  Phases, each fatal on failure:
    every map-side batch went through the hash-pid kernel once and the
    radix-histogram kernel (the writer's partition sizes) once;
 4. time the kernel and its plain version (CUDA events and the
-   profiler's kernel durations);
+   profiler's kernel durations) beside the launch floor (the profiler's
+   duration of a one-element `add_`);
 5. profile one map task: wall time, device busy time and idle share,
    the top kernels and host ops;
 6. hold the radix-histogram kernel bit-exact against its plain version
-   on the card: n in {128, 8192, 144000, 2^24} x b_bits in {0, 1, 6, 8},
-   and the writer's partition sizes at n_parts 7 and 200 on row counts
-   that are not multiples of 128;
+   on the card: n in {128, 256, 512, 1024, 128 x 131, 8192, 144000,
+   524288, 2^24} x b_bits in {0, 1, 6, 8} (clusters of 1, 2, 4 and 8
+   blocks), all-zero and all-same-digit words, a view off a 16-byte
+   boundary (must raise ValueError), and the writer's partition sizes at
+   n_parts 7 and 200 on row counts that are not multiples of 128;
 7. run the global-sort stage pair on the same rows through
    `execute_task_bytes`: 8 map tasks (FFIReader -> Projection ->
    RssShuffleWriter, range partitioning into 200 partitions by bounds
@@ -36,9 +42,10 @@ the sources in this checkout.  Phases, each fatal on failure:
    lies inside its partition's bounds, that every map-side batch went
    through the radix-histogram kernel once, and that every reduce sort
    ran in the form `sort_strategy` resolves for the card;
-8. time the radix-histogram kernel at the writer's shapes against its
-   plain version, its memory bound and `torch.bincount`, and a reduce
-   task's sort under both strategies (pack-sort and multipass);
+8. time the radix-histogram kernel at the writer's shapes (and on
+   all-zero words at 524288) against its plain version, its memory
+   bound, `torch.bincount` and the launch floor, and a reduce task's
+   sort under both strategies (pack-sort and multipass);
 9. profile one sort map task and one sort reduce task.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
@@ -68,6 +75,7 @@ HIST_B_BITS = 8                      # ceil_log2(200 partitions)
 HIST_OPS_PER_WORD = 3                # shift, bucket address, shared add
 SAMPLE_POINTS_PER_PARTITION = 20     # Spark RangePartitioner's sample hint
 SCAN_BATCH = 8192                    # auron.batch.size: a range map batch
+PROFILE_ATTEMPTS = 3                 # profiler sessions tried for one time
 
 
 def card_line() -> str:
@@ -112,17 +120,27 @@ def check_kernel(K, dev, rng) -> int:
     """Phase 2: kernel == plain version, bit for bit; returns the largest
     absolute pid difference seen (0)."""
     worst = 0
-    for n in (1, 127, 8192, 2**24 + 3):
+
+    def check(keys, valid, n_parts, what):
+        nonlocal worst
+        got = K.hash_partition_ids_i64(keys, valid, n_parts)
+        exp = K.hash_partition_ids_i64_plain(keys, valid, n_parts)
+        torch.cuda.synchronize()
+        err = int((got.long() - exp.long()).abs().max())
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"hash-pid kernel != plain at {what} "
+                                 f"n_parts={n_parts}: max err {err}")
+    for n in (1, 3, 127, 1025, 8192, 499_499, 2**24 + 3):
         keys, valid = random_keys(rng, n, dev)
         for n_parts in (1, 7, 200):
-            got = K.hash_partition_ids_i64(keys, valid, n_parts)
-            exp = K.hash_partition_ids_i64_plain(keys, valid, n_parts)
-            torch.cuda.synchronize()
-            err = int((got.long() - exp.long()).abs().max())
-            worst = max(worst, err)
-            if err:
-                raise AssertionError(f"hash-pid kernel != plain at n={n} "
-                                     f"n_parts={n_parts}: max err {err}")
+            check(keys, valid, n_parts, f"n={n}")
+    # views off a 16-byte boundary take the kernel's scalar path
+    keys, valid = random_keys(rng, 499_500, dev)
+    for k, v, what in ((keys[1:], valid[1:], "keys[1:], valid[1:]"),
+                       (keys[1:], valid[:-1], "keys[1:]"),
+                       (keys[:-1], valid[1:], "valid[1:]")):
+        check(k, v, N_REDUCE, what)
     keys, _ = random_keys(rng, 8192, dev)
     none = torch.zeros(8192, dtype=torch.bool, device=dev)
     for n_parts in (1, 7, 200):
@@ -130,7 +148,8 @@ def check_kernel(K, dev, rng) -> int:
         if not bool((got == 42 % n_parts).all()):
             raise AssertionError(f"all-null batch: pids != 42 % {n_parts}")
     print(f"phase 2: hash-pid kernel bit-exact with its plain version "
-          f"(n in 1, 127, 8192, 2^24+3 x n_parts 1, 7, 200; all-null)")
+          f"(n in 1, 3, 127, 1025, 8192, 499499, 2^24+3 x n_parts 1, 7, "
+          f"200; keys[1:] and valid[1:] views; all-null)")
     return worst
 
 
@@ -247,19 +266,54 @@ def _device_us(prof) -> float:
     return total
 
 
-def profiled_ms(fn, iters: int = 25):
+def profiled_ms(fn, iters: int = 25, kernel: str = ""):
     """Device time of one call from torch.profiler's CUDA trace (kernel
-    durations summed, gaps excluded), or None when the trace has none."""
+    durations summed, gaps excluded), or None when no attempt's trace
+    has any.
+
+    The calls run twice inside the profiler, a warm-up step whose events
+    are discarded and the measured step: late in a long process the
+    trace misses the first launches of a session otherwise (up to half
+    of 25 on an H100), and now and then a whole session.  With `kernel`,
+    a substring of the name of the one kernel a call launches, the
+    result is that kernel's mean duration over the launches the trace
+    holds, which a lost launch cannot bias."""
     fn()
     torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        ms = _profiled_once(fn, iters, kernel)
+        if ms is not None:
+            return ms
+    return None
+
+
+def _profiled_once(fn, iters: int, kernel: str):
+    from torch.autograd import DeviceType
     prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
+        activities=[torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                         repeat=1))
     with prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if kernel:
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in hits)
+        us = sum(e.self_device_time_total for e in hits)
+        return us / n / 1e3 if n and us > 0 else None
     us = _device_us(prof)
     return us / iters / 1e3 if us > 0 else None
+
+
+def launch_floor_ms(dev) -> float:
+    """The profiler's duration of a one-element `add_`: what no launch
+    goes below."""
+    x = torch.zeros(1, device=dev)
+    return profiled_ms(lambda: x.add_(1), kernel="elementwise")
 
 
 def profile_task(label: str, fn, card: str) -> None:
@@ -389,17 +443,46 @@ def check_hist_kernel(K, dev, rng) -> int:
     absolute count difference seen (0)."""
     from auron_tpu_torch.ops.shuffle import writer as W
     worst = 0
-    for n in (128, 8192, 144_000, 1 << 24):
+
+    def check(words, b, what):
+        nonlocal worst
+        got = K.radix_bucket_hist(words, b)
+        exp = K.radix_bucket_hist_plain(words, b)
+        torch.cuda.synchronize()
+        err = int((got.long() - exp.long()).abs().max())
+        worst = max(worst, err)
+        if err or got.shape != exp.shape or \
+                int(got.sum()) != words.shape[0]:
+            raise AssertionError(f"radix-hist kernel != plain at {what} "
+                                 f"b_bits={b}: max err {err}")
+    sizes = (128, 256, 512, 1024, 128 * 131, 8192, 144_000, 524_288,
+             1 << 24)
+    clusters = {K.hist_launch_shape(n)[1] for n in sizes}
+    if clusters != {1, 2, 4, 8}:
+        raise AssertionError(f"the sizes cover clusters {clusters}")
+    for n in sizes:
         words = hist_words(rng, n, dev)
         for b in (0, 1, 6, 8):
-            got = K.radix_bucket_hist(words, b)
-            exp = K.radix_bucket_hist_plain(words, b)
-            torch.cuda.synchronize()
-            err = int((got.long() - exp.long()).abs().max())
-            worst = max(worst, err)
-            if err or got.shape != exp.shape or int(got.sum()) != n:
-                raise AssertionError(f"radix-hist kernel != plain at n={n} "
-                                     f"b_bits={b}: max err {err}")
+            check(words, b, f"n={n}")
+    # skew: every word in one bucket (the writer's zero padding, a null
+    # partition)
+    for n in (8192, 524_288):
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        # digit 199 in the top byte, as the int32 bit view
+        same = (hist_words(rng, n, dev) & 0x00FFFFFF) | \
+            ((199 << 24) - (1 << 32))
+        for b in (0, 1, 6, 8):
+            check(zeros, b, f"all-zero n={n}")
+            check(same, b, f"one digit n={n}")
+    before = K.LAUNCHES["radix_bucket_hist"]
+    try:
+        K.radix_bucket_hist(hist_words(rng, 8193, dev)[1:], 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a view off a 16-byte boundary did not raise")
+    if K.LAUNCHES["radix_bucket_hist"] != before:
+        raise AssertionError("the refused view was counted as a launch")
     for n in (8192, 1000, 8191, 499_499):
         for n_parts in (7, 200):
             pids = torch.from_numpy(rng.integers(0, n_parts, n)
@@ -412,15 +495,22 @@ def check_hist_kernel(K, dev, rng) -> int:
                 raise AssertionError(f"writer sizes != bincount at n={n} "
                                      f"n_parts={n_parts}")
     print("phase 6: radix-hist kernel bit-exact with its plain version "
-          "(n in 128, 8192, 144000, 2^24 x b_bits 0, 1, 6, 8); writer "
-          "sizes exact at n in 8192, 1000, 8191, 499499 x n_parts 7, 200")
+          "(n in 128, 256, 512, 1024, 16768, 8192, 144000, 524288, 2^24 x "
+          "b_bits 0, 1, 6, 8: clusters of 1, 2, 4, 8; all-zero and "
+          "one-digit words at 8192, 524288); words[1:] raised ValueError; "
+          "writer sizes exact at n in 8192, 1000, 8191, 499499 x n_parts "
+          "7, 200")
     return worst
 
 
-def time_hist(K, dev, rng, cap: int, n_parts: int, card: str):
-    """Phase 8: the kernel at one of the writer's shapes; returns its
-    JSON numbers and the largest difference from the plain version."""
-    words = hist_words(rng, cap, dev, n_parts)
+def time_hist(K, dev, rng, cap: int, n_parts: int, card: str,
+              zero: bool = False):
+    """Phase 8: the kernel at one of the writer's shapes, on ids of
+    n_parts partitions or, with `zero`, on all-zero words (one bucket);
+    returns its JSON numbers and the largest difference from the plain
+    version."""
+    words = torch.zeros(cap, dtype=torch.int32, device=dev) if zero else \
+        hist_words(rng, cap, dev, n_parts)
     b = HIST_B_BITS
     idx, length = hist_library_input(words, b)
     kernel = lambda: K.radix_bucket_hist(words, b)  # noqa: E731
@@ -433,10 +523,11 @@ def time_hist(K, dev, rng, cap: int, n_parts: int, card: str):
                              f"cap={cap}")
     ev = {k: median_ms(f) for k, f in
           (("kernel", kernel), ("plain", plain), ("library", library))}
-    pr = {k: profiled_ms(f) for k, f in
-          (("kernel", kernel), ("plain", plain), ("library", library))}
+    pr = {"kernel": profiled_ms(kernel, kernel="radix_hist_kernel"),
+          "plain": profiled_ms(plain), "library": profiled_ms(library)}
     bound, bound_by = hist_bound(cap, b)
-    print(f"phase 8: radix-hist cap={cap} b_bits={b}: kernel "
+    print(f"phase 8: radix-hist cap={cap}{' all-zero' if zero else ''} "
+          f"b_bits={b}: kernel "
           f"{ev['kernel']:.5f} ms by events, {pr['kernel']} ms by "
           f"profiler; plain {ev['plain']:.5f} / {pr['plain']} ms; "
           f"torch.bincount {ev['library']:.5f} / {pr['library']} ms; "
@@ -670,6 +761,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=SF10_STORE_SALES_ROWS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -730,7 +822,8 @@ def main() -> int:
         if err:
             raise AssertionError(f"hash-pid kernel != plain at n={n}")
         ev_k, ev_p = median_ms(kernel), median_ms(plain)
-        pr_k, pr_p = profiled_ms(kernel), profiled_ms(plain)
+        pr_k, pr_p = profiled_ms(kernel, kernel="hash_pid_i64"), \
+            profiled_ms(plain)
         # the profiler's kernel durations where the trace has them: the
         # event window of one small launch also holds the host's launch
         # overhead
@@ -741,6 +834,8 @@ def main() -> int:
               f"| {card}")
     k_ms, p_ms = timings[main_n]
     bound_ms, bound_by = pid_bound(main_n)
+    print(f"phase 4: launch floor (one-element add_) {launch_floor_ms(dev)} "
+          f"ms by profiler | {card}")
     profile_map_task(cols, valid, dev, card)
 
     hist_err = check_hist_kernel(K, dev, rng)
@@ -796,9 +891,16 @@ def main() -> int:
     hist_err = max(hist_err, err)
     _, err = time_hist(K, dev, rng, bucket_capacity(main_n), N_REDUCE, card)
     hist_err = max(hist_err, err)
+    _, err = time_hist(K, dev, rng, bucket_capacity(main_n), N_REDUCE, card,
+                       zero=True)
+    hist_err = max(hist_err, err)
+    print(f"phase 8: launch floor (one-element add_) {launch_floor_ms(dev)} "
+          f"ms by profiler | {card}")
     time_reduce_sort(svc, dev, card)
     profile_sort_tasks(cols, valid, svc, plans, dev, card)
 
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all "
+          f"| {card}")
     print(json.dumps({"kernels": [{
         "name": "hash_partition_ids_i64", "route": "cuda",
         "source": "auron_tpu_torch/csrc/hash_pid.cu",

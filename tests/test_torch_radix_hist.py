@@ -1,8 +1,10 @@
 """The radix bucket histogram, auron_tpu_torch against auron_tpu: the plain
 version (what the wrapper runs on CPU tensors) against the Pallas kernel
-in interpret mode and against its jnp twin, bit for bit; and the shuffle
-writer's partition sizes, which come from it, against the JAX writer's
-counting sort (`partition_sort`)."""
+in interpret mode and against its jnp twin, bit for bit; the CUDA
+kernel's launch shape (a cluster of blocks per tile) and its cluster sum,
+emulated in torch, against both; and the shuffle writer's partition
+sizes, which come from it, against the JAX writer's counting sort
+(`partition_sort`)."""
 
 import os
 import pathlib
@@ -28,6 +30,13 @@ from auron_tpu_torch.runtime.resources import ResourceRegistry
 
 SIZES = (128, 4096, 128 * 1031)     # the last has a prime tile count
 CASES = [(n, b) for n in SIZES for b in range(9)]
+# the main paths' caps (a range map batch; a hash map batch, padded) and
+# tile heights 1, 2, 3, 4, 131, 256 and 1031 rows of 128 words
+MAIN_CAPS = (8192, 524_288)
+CLUSTER_CAPS = MAIN_CAPS + tuple(128 * r for r in (1, 2, 3, 4, 131, 256,
+                                                   1031))
+CLUSTER_CASES = [(n, b) for n in CLUSTER_CAPS for b in (0, 1, 3, 8)]
+SWEEP_CASES = sorted(set(CASES) | set(CLUSTER_CASES))
 
 
 def _words(n, seed):
@@ -45,9 +54,9 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 from auron_tpu.ops import kernels_pallas as KP
-from test_torch_radix_hist import CASES, _words
+from test_torch_radix_hist import SWEEP_CASES, _words
 out = {}
-for n, b in CASES:
+for n, b in SWEEP_CASES:
     u, _ = _words(n, seed=n + b)
     out[f"{n}_{b}"] = np.asarray(KP.radix_bucket_hist(jnp.asarray(u), b,
                                                       interpret=True))
@@ -70,7 +79,8 @@ def pallas_sweep(tmp_path_factory):
     path = tmp_path_factory.mktemp("pallas") / "sweep.npz"
     here = pathlib.Path(__file__).resolve().parent
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               AURON_TPU_AURON_JITCHECK_RETRACE_MAX=str(len(CASES) + 2),
+               AURON_TPU_AURON_JITCHECK_RETRACE_MAX=str(len(SWEEP_CASES) +
+                                                        2),
                PYTHONPATH=os.pathsep.join([str(here), str(here.parent)]))
     proc = subprocess.run([sys.executable, "-c", _SWEEP, str(path)],
                           env=env, capture_output=True, text=True,
@@ -108,6 +118,49 @@ def test_tile_rows_follow_the_pallas_rule():
     assert [K.hist_tile_rows(n) for n in (128, 8192, 144000, 1 << 24,
                                           128 * 1031)] == \
         [1, 64, 225, 256, 1]
+
+
+LAUNCH_CAPS = sorted(set(CLUSTER_CAPS) |
+                     set(range(128, (1 << 16) + 1, 128)))
+
+
+@pytest.mark.parametrize("cap", LAUNCH_CAPS)
+def test_launch_shape_is_whole_clusters_of_whole_vectors(cap):
+    tile_rows, cluster, slice_words = K.hist_launch_shape(cap)
+    assert tile_rows == K.hist_tile_rows(cap)
+    assert cluster in (1, 2, 4, 8)
+    assert tile_rows % cluster == 0
+    # the largest such power of two
+    assert cluster == 8 or tile_rows % (2 * cluster)
+    assert slice_words * cluster == tile_rows * K.LANES
+    assert slice_words * 4 % K.VECTOR_BYTES == 0
+
+
+def test_launch_shape_at_the_main_paths_caps():
+    # a range map batch: one tile, 8 blocks of 1,024 words (one uint4 a
+    # thread); a hash map batch: 16 tiles x 8 blocks of 4,096 words
+    assert K.hist_launch_shape(8192) == (64, 8, 1024)
+    assert K.hist_launch_shape(524_288) == (256, 8, 4096)
+    assert K.hist_launch_shape(128 * 131) == (131, 1, 128 * 131)
+
+
+def _cluster_sum(words, b_bits):
+    """The kernel's arithmetic in torch: each tile cut into its cluster's
+    slices, each slice counted alone, the slices' counts summed."""
+    tile_rows, cluster, slice_words = K.hist_launch_shape(words.shape[0])
+    slices = words.view(-1, cluster, slice_words)
+    return torch.stack([
+        sum(K.radix_bucket_hist_plain(s.contiguous(), b_bits).sum(0)
+            for s in tile) for tile in slices]).to(torch.int32)
+
+
+@pytest.mark.parametrize("n,b_bits", CLUSTER_CASES)
+def test_cluster_sum_matches_plain_and_pallas(n, b_bits, pallas_sweep):
+    _, words = _words(n, seed=n + b_bits)
+    got = _cluster_sum(words, b_bits).numpy()
+    np.testing.assert_array_equal(got,
+                                  K.radix_bucket_hist_plain(words, b_bits))
+    np.testing.assert_array_equal(got, pallas_sweep[f"{n}_{b_bits}"])
 
 
 def _hash_ids(n, n_parts, seed):

@@ -165,7 +165,7 @@ def test_radix_hist_wrapper_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "dim", "length", "empty",
-                                 "contiguous", "b_bits"])
+                                 "contiguous", "aligned", "b_bits"])
 def test_radix_hist_wrapper_checks_its_inputs(bad):
     words = torch.zeros(256, dtype=torch.int32)
     b_bits = 8
@@ -179,6 +179,8 @@ def test_radix_hist_wrapper_checks_its_inputs(bad):
         words = words[:0]
     elif bad == "contiguous":
         words = torch.zeros(512, dtype=torch.int32)[::2]
+    elif bad == "aligned":      # 256 words starting 4 bytes off a vector
+        words = torch.zeros(257, dtype=torch.int32)[1:]
     else:
         b_bits = 9
     with pytest.raises((TypeError, ValueError)):
