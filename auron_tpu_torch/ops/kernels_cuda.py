@@ -192,17 +192,17 @@ def hist_tile_rows(cap: int) -> int:
     return tile_rows
 
 
-def hist_launch_shape(cap: int) -> Tuple[int, int, int]:
-    """(tile_rows, cluster, slice_words) of the kernel's launch for `cap`
-    words: each tile of hist_tile_rows(cap) x 128 words is counted by a
-    cluster of `cluster` blocks, the largest power of two <= 8 that
-    divides tile_rows, each block taking `slice_words` consecutive words
-    (a multiple of 128, so a whole number of 16-byte vectors)."""
+def hist_launch_shape(cap: int) -> Tuple[int, int]:
+    """(tile_rows, cluster) of the kernel's launch for `cap` words: each
+    tile of hist_tile_rows(cap) x 128 words is counted by a cluster of
+    `cluster` blocks, the largest power of two <= 8 that divides
+    tile_rows, each block taking tile_rows * 128 / cluster consecutive
+    words (a multiple of 128, so a whole number of 16-byte vectors)."""
     tile_rows = hist_tile_rows(cap)
     cluster = HIST_MAX_CLUSTER
     while tile_rows % cluster:
         cluster //= 2
-    return tile_rows, cluster, tile_rows * LANES // cluster
+    return tile_rows, cluster
 
 
 def radix_bucket_hist_plain(words: torch.Tensor, b_bits: int
@@ -224,12 +224,13 @@ def radix_bucket_hist(words: torch.Tensor, b_bits: int) -> torch.Tensor:
 
     words: the u32 words as an int32 tensor holding their bits (a bit
     view: a word >= 2^31 is the negative int32 of the same bits), 1-D,
-    contiguous, cap % 128 == 0, starting on a 16-byte boundary (every
-    fresh allocation does; a view such as words[1:] does not).  b_bits in
-    0..8, else ValueError, as the Pallas kernel.  On a CUDA device this
-    launches the hand-written kernel (hist_launch_shape: a cluster of
-    blocks per tile) on the current stream without synchronising; on the
-    CPU it runs the plain version."""
+    contiguous, cap % 128 == 0.  b_bits in 0..8, else ValueError, as the
+    Pallas kernel.  On a CUDA device this launches the hand-written kernel
+    (hist_launch_shape: a cluster of blocks per tile) on the current
+    stream without synchronising; the kernel reads 16-byte vectors, so
+    there the words must start on a 16-byte boundary, else ValueError
+    (every fresh allocation does; a view such as words[1:] does not).  On
+    the CPU it runs the plain version."""
     if not 1 <= (1 << b_bits) <= (1 << HIST_MAX_BITS):
         raise ValueError(f"b_bits {b_bits} outside staging range")
     if words.dim() != 1 or words.dtype != torch.int32:
@@ -243,13 +244,13 @@ def radix_bucket_hist(words: torch.Tensor, b_bits: int) -> torch.Tensor:
         raise ValueError("words must be contiguous")
     if words.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no radix-hist kernel for device {words.device}")
+    if words.device.type == "cpu":
+        return radix_bucket_hist_plain(words, b_bits)
     if words.data_ptr() % VECTOR_BYTES:
         raise ValueError(f"words must start on a {VECTOR_BYTES}-byte "
                          f"boundary")
-    if words.device.type == "cpu":
-        return radix_bucket_hist_plain(words, b_bits)
     lib = _library("radix_hist")
-    tile_rows, cluster, _ = hist_launch_shape(cap)
+    tile_rows, cluster = hist_launch_shape(cap)
     out = torch.empty((cap // (tile_rows * LANES), 1 << b_bits),
                       dtype=torch.int32, device=words.device)
     with torch.cuda.device(words.device):

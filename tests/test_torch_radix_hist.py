@@ -126,7 +126,8 @@ LAUNCH_CAPS = sorted(set(CLUSTER_CAPS) |
 
 @pytest.mark.parametrize("cap", LAUNCH_CAPS)
 def test_launch_shape_is_whole_clusters_of_whole_vectors(cap):
-    tile_rows, cluster, slice_words = K.hist_launch_shape(cap)
+    tile_rows, cluster = K.hist_launch_shape(cap)
+    slice_words = tile_rows * K.LANES // cluster
     assert tile_rows == K.hist_tile_rows(cap)
     assert cluster in (1, 2, 4, 8)
     assert tile_rows % cluster == 0
@@ -139,16 +140,16 @@ def test_launch_shape_is_whole_clusters_of_whole_vectors(cap):
 def test_launch_shape_at_the_main_paths_caps():
     # a range map batch: one tile, 8 blocks of 1,024 words (one uint4 a
     # thread); a hash map batch: 16 tiles x 8 blocks of 4,096 words
-    assert K.hist_launch_shape(8192) == (64, 8, 1024)
-    assert K.hist_launch_shape(524_288) == (256, 8, 4096)
-    assert K.hist_launch_shape(128 * 131) == (131, 1, 128 * 131)
+    assert K.hist_launch_shape(8192) == (64, 8)
+    assert K.hist_launch_shape(524_288) == (256, 8)
+    assert K.hist_launch_shape(128 * 131) == (131, 1)
 
 
 def _cluster_sum(words, b_bits):
     """The kernel's arithmetic in torch: each tile cut into its cluster's
     slices, each slice counted alone, the slices' counts summed."""
-    tile_rows, cluster, slice_words = K.hist_launch_shape(words.shape[0])
-    slices = words.view(-1, cluster, slice_words)
+    tile_rows, cluster = K.hist_launch_shape(words.shape[0])
+    slices = words.view(-1, cluster, tile_rows * K.LANES // cluster)
     return torch.stack([
         sum(K.radix_bucket_hist_plain(s.contiguous(), b_bits).sum(0)
             for s in tile) for tile in slices]).to(torch.int32)

@@ -164,8 +164,38 @@ def test_radix_hist_wrapper_never_falls_back(monkeypatch):
     assert not called
 
 
+def test_radix_hist_misaligned_cuda_words_raise(monkeypatch):
+    """The kernel reads 16-byte vectors: CUDA words 4 bytes off a vector
+    boundary raise ValueError before any build or launch, and the plain
+    version is not called."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    with FakeTensorMode():
+        words = torch.empty(256, dtype=torch.int32, device="cuda")
+    monkeypatch.setattr(FakeTensor, "data_ptr", lambda self: 4,
+                        raising=False)
+    called = []
+    monkeypatch.setattr(K, "radix_bucket_hist_plain",
+                        lambda *a: called.append(a))
+    monkeypatch.setattr(K, "_library", lambda name: called.append(name))
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="boundary"):
+        K.radix_bucket_hist(words, 8)
+    assert not called
+    assert K.LAUNCHES == before
+
+
+def test_radix_hist_misaligned_cpu_words_run_plain():
+    """The plain version has no alignment need: a CPU view 4 bytes off a
+    vector boundary counts as its aligned copy does."""
+    base = torch.arange(257, dtype=torch.int32) * 16_777_259
+    view = base[1:]
+    assert view.data_ptr() % K.VECTOR_BYTES
+    assert torch.equal(K.radix_bucket_hist(view, 8),
+                       K.radix_bucket_hist(view.clone(), 8))
+
+
 @pytest.mark.parametrize("bad", ["dtype", "dim", "length", "empty",
-                                 "contiguous", "aligned", "b_bits"])
+                                 "contiguous", "b_bits"])
 def test_radix_hist_wrapper_checks_its_inputs(bad):
     words = torch.zeros(256, dtype=torch.int32)
     b_bits = 8
@@ -179,8 +209,6 @@ def test_radix_hist_wrapper_checks_its_inputs(bad):
         words = words[:0]
     elif bad == "contiguous":
         words = torch.zeros(512, dtype=torch.int32)[::2]
-    elif bad == "aligned":      # 256 words starting 4 bytes off a vector
-        words = torch.zeros(257, dtype=torch.int32)[1:]
     else:
         b_bits = 9
     with pytest.raises((TypeError, ValueError)):
