@@ -1,11 +1,22 @@
 """Expression evaluation on torch tensors (counterpart of
-auron_tpu/exprs/compiler.py, with the type rules of exprs/typing.py and
-exprs/values.py that these kinds need).
+auron_tpu/exprs/compiler.py; the type rules are in exprs/typing.py and
+the casts in exprs/cast.py).
 
-The kinds this slice evaluates: column reference, literal, cast and
-multiply, with SQL null propagation (a null operand gives a null result,
-and null slots hold zeros).  torch runs eagerly, so `build_evaluator`
-resolves column indices once and each call evaluates the tree directly.
+The kinds the port evaluates: column reference, literal, the binary
+node (`+ - * / %`, `& | ^ << >>`, the comparisons `== != < <= > >= <=>`
+and Kleene `and`/`or`), `is_null`, `is_not_null`, `not`, `negative`,
+`cast`, `try_cast`, `case`, `in_list` and the short-circuit `sc_and` /
+`sc_or` (evaluated as Kleene logic over both sides).  SQL semantics:
+- a null operand gives a null result, and null slots hold zeros;
+- Spark's division and remainder by zero give null, integer division
+  truncates toward zero and the remainder takes the dividend's sign;
+- float comparisons hold NaN equal to NaN and above every number;
+- a date plus or minus an integer is a date, a date minus a date an
+  int32 count of days.
+The string, scalar-function, row-id, UDF, subquery and bloom kinds raise
+NotImplementedError naming the kind.  torch runs eagerly, so
+`build_evaluator` resolves the output types once and each call
+evaluates the trees directly.
 """
 
 from __future__ import annotations
@@ -16,38 +27,12 @@ from typing import Callable, Dict, List
 import torch
 
 from auron_tpu_torch.columnar.batch import Batch, DeviceColumn, flat
+from auron_tpu_torch.exprs.cast import cast_column
+from auron_tpu_torch.exprs.typing import (
+    CMP_OPS, binary_result_type, infer_type, promote,
+)
 from auron_tpu_torch.ir import expr as E
 from auron_tpu_torch.ir.schema import DataType, Schema, TypeId
-
-_RANK = {
-    TypeId.BOOL: 0, TypeId.INT8: 1, TypeId.INT16: 2, TypeId.INT32: 3,
-    TypeId.INT64: 4, TypeId.FLOAT32: 5, TypeId.FLOAT64: 6,
-}
-
-
-def promote(a: DataType, b: DataType) -> DataType:
-    """Numeric binary-op result type (the JAX package's widening)."""
-    if a.id == b.id and not a.is_decimal:
-        return a
-    if a.is_decimal or b.is_decimal:
-        return DataType.float64()
-    if {a.id, b.id} == {TypeId.INT64, TypeId.FLOAT32}:
-        return DataType.float64()
-    return a if _RANK.get(a.id, 6) >= _RANK.get(b.id, 6) else b
-
-
-def infer_type(expr: E.Expr, schema: Schema) -> DataType:
-    k = expr.kind
-    if k == "column":
-        return schema.field(expr.name).dtype
-    if k in ("literal", "cast"):
-        return expr.dtype
-    if k == "binary" and expr.op == "*":
-        return promote(infer_type(expr.left, schema),
-                       infer_type(expr.right, schema))
-    raise NotImplementedError(
-        f"expression {k!r}{' ' + expr.op if k == 'binary' else ''} is not "
-        f"in auron_tpu_torch yet")
 
 
 @dataclass
@@ -56,6 +41,9 @@ class EvalCtx:
     schema: Schema
     capacity: int
     device: torch.device
+
+    def ones(self) -> torch.Tensor:
+        return torch.ones(self.capacity, dtype=torch.bool, device=self.device)
 
 
 def evaluate(expr: E.Expr, ctx: EvalCtx) -> DeviceColumn:
@@ -79,49 +67,200 @@ def _eval_literal(e: E.Literal, ctx: EvalCtx) -> DeviceColumn:
             torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device))
     return DeviceColumn(
         dt, torch.full((ctx.capacity,), e.value, dtype=tdt,
-                       device=ctx.device),
-        torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device))
+                       device=ctx.device), ctx.ones())
 
 
-def cast_column(col: DeviceColumn, dst: DataType) -> DeviceColumn:
-    """Numeric casts: to float converts; float to integral truncates,
-    saturates at the type's bounds and maps NaN to 0 (Spark); integral
-    narrowing wraps (Java)."""
-    src = col.dtype
-    if src == dst:
-        return col
-    tdt = dst.torch_dtype()
-    data, valid = col.data, col.validity
-    if dst.is_integral and src.is_floating:
-        info = torch.iinfo(tdt)
-        x = torch.where(torch.isnan(data), 0.0, data)
-        big, small = x >= float(info.max), x <= float(info.min)
-        out = torch.trunc(torch.where(big | small, 0.0, x)).to(tdt)
-        out = torch.where(big, info.max, torch.where(small, info.min, out))
-        return flat(dst, out.to(tdt), valid)
-    return flat(dst, data.to(tdt), valid)
+def _eval_is_null(e: E.IsNull, ctx: EvalCtx) -> DeviceColumn:
+    c = evaluate(e.child, ctx)
+    return DeviceColumn(DataType.bool_(), ~c.validity, ctx.ones())
 
 
-def _eval_cast(e: E.Cast, ctx: EvalCtx) -> DeviceColumn:
-    return cast_column(evaluate(e.child, ctx), e.dtype)
+def _eval_is_not_null(e: E.IsNotNull, ctx: EvalCtx) -> DeviceColumn:
+    c = evaluate(e.child, ctx)
+    return DeviceColumn(DataType.bool_(), c.validity, ctx.ones())
+
+
+def _eval_not(e: E.Not, ctx: EvalCtx) -> DeviceColumn:
+    c = evaluate(e.child, ctx)
+    return flat(DataType.bool_(), c.data == 0, c.validity)
+
+
+def _eval_negative(e: E.Negative, ctx: EvalCtx) -> DeviceColumn:
+    c = evaluate(e.child, ctx)
+    if c.dtype.id == TypeId.BOOL:
+        raise TypeError("negative of a bool")
+    return flat(c.dtype, -c.data, c.validity)
+
+
+def _eval_cast(e, ctx: EvalCtx) -> DeviceColumn:
+    return cast_column(evaluate(e.child, ctx), e.dtype,
+                       try_=e.kind == "try_cast")
+
+
+def _as(col: DeviceColumn, t: DataType) -> torch.Tensor:
+    return col.data.to(t.torch_dtype())
+
+
+def compare(op: str, a: torch.Tensor, b: torch.Tensor, t: DataType
+            ) -> torch.Tensor:
+    """Spark's comparison of two tensors of type t: floats hold NaN equal
+    to NaN and above every number (and -0.0 equal to 0.0)."""
+    if t.is_floating:
+        an, bn = torch.isnan(a), torch.isnan(b)
+        both_num = ~an & ~bn
+        eq = (an & bn) | (both_num & (a == b))
+        lt = (~an & bn) | (both_num & (a < b))
+    else:
+        eq, lt = a == b, a < b
+    if op in ("==", "=", "<=>"):
+        return eq
+    if op == "!=":
+        return ~eq
+    if op == "<":
+        return lt
+    if op == "<=":
+        return lt | eq
+    if op == ">":
+        return ~(lt | eq)
+    if op == ">=":
+        return ~lt
+    raise NotImplementedError(f"comparison {op!r}")
+
+
+def _int_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Truncated (toward zero) integer division, Java/Spark semantics."""
+    q = torch.div(torch.abs(a), torch.abs(b), rounding_mode="floor")
+    return torch.sign(a) * torch.sign(b) * q
 
 
 def _eval_binary(e: E.BinaryExpr, ctx: EvalCtx) -> DeviceColumn:
-    if e.op != "*":
-        raise NotImplementedError(
-            f"binary op {e.op!r} is not in auron_tpu_torch yet")
+    op = e.op
     lc, rc = evaluate(e.left, ctx), evaluate(e.right, ctx)
-    t = promote(lc.dtype, rc.dtype)
-    tdt = t.torch_dtype()
-    return flat(t, lc.data.to(tdt) * rc.data.to(tdt),
-                lc.validity & rc.validity)
+    if op in ("and", "or"):
+        return kleene(op, lc, rc)
+    both = lc.validity & rc.validity
+    if op in CMP_OPS:
+        t = promote(lc.dtype, rc.dtype)
+        data = compare(op, _as(lc, t), _as(rc, t), t)
+        if op == "<=>":     # null-safe equal: never null
+            data = torch.where(both, data, ~lc.validity & ~rc.validity)
+            return DeviceColumn(DataType.bool_(), data, ctx.ones())
+        return flat(DataType.bool_(), data, both)
+    if lc.dtype.id == TypeId.DATE32 and op in ("+", "-"):
+        if rc.dtype.id == TypeId.DATE32 and op == "-":
+            return flat(DataType.int32(), lc.data - rc.data, both)
+        delta = rc.data.to(torch.int32)
+        return flat(DataType.date32(),
+                    lc.data + delta if op == "+" else lc.data - delta, both)
+    t = binary_result_type(op, lc.dtype, rc.dtype)
+    if t.id == TypeId.BOOL and op not in ("&", "|", "^"):
+        raise TypeError(f"arithmetic {op!r} on bool operands")
+    a, b = _as(lc, t), _as(rc, t)
+    if op == "+":
+        data = a + b
+    elif op == "-":
+        data = a - b
+    elif op == "*":
+        data = a * b
+    elif op in ("/", "%", "mod"):
+        # Spark: a zero divisor gives null
+        zero = b == 0
+        both = both & ~zero
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+        if op == "/":
+            bb = torch.where(zero, one, b)
+            data = a / bb if t.is_floating else _int_div(a, bb)
+        else:
+            # Java's %: the exact remainder with the dividend's sign; x % -1
+            # is 0 (= x % 1), which spares MIN % -1 its overflow
+            bb = torch.where(zero | (b == -1), one, b)
+            data = torch.fmod(a, bb)
+    elif op == "&":
+        data = a & b
+    elif op == "|":
+        data = a | b
+    elif op == "^":
+        data = a ^ b
+    elif op in ("<<", ">>"):
+        n = torch.remainder(b, a.element_size() * 8)
+        data = a << n if op == "<<" else a >> n
+    else:
+        raise NotImplementedError(
+            f"binary op {op!r} is not in auron_tpu_torch yet")
+    return flat(t, data, both)
+
+
+def kleene(op: str, lc: DeviceColumn, rc: DeviceColumn) -> DeviceColumn:
+    """SQL three-valued AND/OR: false AND null is false, true OR null is
+    true, otherwise a null side gives null."""
+    a, av = lc.data != 0, lc.validity
+    b, bv = rc.data != 0, rc.validity
+    if op == "and":
+        data = (a | ~av) & (b | ~bv)
+        valid = (av & bv) | (av & ~a) | (bv & ~b)
+    else:
+        data = (a & av) | (b & bv)
+        valid = (av & bv) | (av & a) | (bv & b)
+    return flat(DataType.bool_(), data, valid)
+
+
+def _eval_sc(e, ctx: EvalCtx) -> DeviceColumn:
+    # both sides are evaluated over the whole batch: the short circuit is
+    # an optimisation of row-at-a-time engines, the value is Kleene logic
+    return kleene("and" if e.kind == "sc_and" else "or",
+                  evaluate(e.left, ctx), evaluate(e.right, ctx))
+
+
+def _eval_case(e: E.Case, ctx: EvalCtx) -> DeviceColumn:
+    out_dtype = infer_type(e, ctx.schema)
+    if out_dtype.id == TypeId.NULL:
+        out_dtype = DataType.bool_()
+    tdt = out_dtype.torch_dtype()
+    data = torch.zeros(ctx.capacity, dtype=tdt, device=ctx.device)
+    valid = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    decided = torch.zeros_like(valid)
+    for br in e.branches:
+        w, t = evaluate(br.when, ctx), evaluate(br.then, ctx)
+        fire = ~decided & w.validity & (w.data != 0)
+        data = torch.where(fire, t.data.to(tdt), data)
+        valid = torch.where(fire, t.validity, valid)
+        decided = decided | fire
+    if e.else_expr is not None:
+        el = evaluate(e.else_expr, ctx)
+        data = torch.where(decided, data, el.data.to(tdt))
+        valid = torch.where(decided, valid, el.validity)
+    return flat(out_dtype, data, valid)
+
+
+def _eval_in_list(e: E.InList, ctx: EvalCtx) -> DeviceColumn:
+    """SQL IN: true on a match; with no match, null when the list holds a
+    null, else false (NOT IN negates, null stays null)."""
+    c = evaluate(e.child, ctx)
+    hit = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    null_in_list = torch.zeros_like(hit)
+    for v in e.values:
+        lv = evaluate(v, ctx)
+        t = promote(c.dtype, lv.dtype)
+        hit = hit | (compare("==", _as(c, t), _as(lv, t), t) & lv.validity)
+        null_in_list = null_in_list | ~lv.validity
+    data = ~hit if e.negated else hit
+    return flat(DataType.bool_(), data, c.validity & (hit | ~null_in_list))
 
 
 _DISPATCH: Dict[str, Callable[..., DeviceColumn]] = {
     "column": _eval_column,
     "literal": _eval_literal,
-    "cast": _eval_cast,
     "binary": _eval_binary,
+    "is_null": _eval_is_null,
+    "is_not_null": _eval_is_not_null,
+    "not": _eval_not,
+    "negative": _eval_negative,
+    "cast": _eval_cast,
+    "try_cast": _eval_cast,
+    "case": _eval_case,
+    "in_list": _eval_in_list,
+    "sc_and": _eval_sc,
+    "sc_or": _eval_sc,
 }
 
 
@@ -141,3 +280,11 @@ class CompiledExprs:
 
 def build_evaluator(exprs, schema: Schema) -> CompiledExprs:
     return CompiledExprs(exprs, schema)
+
+
+def build_predicate(predicates, schema: Schema) -> CompiledExprs:
+    """The conjunction of predicates as one boolean expression."""
+    pred = predicates[0]
+    for p in predicates[1:]:
+        pred = E.ScAnd(left=pred, right=p)
+    return CompiledExprs((pred,), schema)

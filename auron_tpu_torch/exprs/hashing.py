@@ -74,11 +74,18 @@ def hash_int64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return _fmix(h1, 8)
 
 
+_CANONICAL_NAN = 0x7FF8000000000000
+
+
 def hash_float64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """hashLong of the IEEE-754 bits, with -0.0 hashed as 0.0."""
+    """hashLong of `Double.doubleToLongBits`: -0.0 hashes as 0.0 and
+    every NaN as the canonical NaN 0x7FF8000000000000, as Spark hashes
+    them (the JAX package hashes a NaN's own bits, ROADMAP Queue 3)."""
+    v = v.to(torch.float64)
     v = torch.where(v == 0.0, torch.zeros((), dtype=v.dtype,
                                           device=v.device), v)
-    return hash_int64(v.to(torch.float64).view(torch.int64), seed)
+    bits = torch.where(torch.isnan(v), _CANONICAL_NAN, v.view(torch.int64))
+    return hash_int64(bits, seed)
 
 
 def hash_column(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Physical expression IR nodes (counterpart of auron_tpu/ir/expr.py).
 
-The kinds this slice evaluates: column reference, literal, cast and the
-binary arithmetic node (multiply), plus the aggregate call and the sort
-order of a Sort or a range partitioning.  Field names,
-defaults and `kind` tags are the JAX package's, so their JSON is the same.
+The kinds the port evaluates: column reference, literal, the binary
+node (arithmetic, bitwise, comparison and Kleene logic), null tests,
+not, negative, cast and try_cast, case, in-list and the short-circuit
+and/or, plus the aggregate call and the sort order of a Sort or a range
+partitioning.  Field names, defaults and `kind` tags are the JAX
+package's, so their JSON is the same.
 """
 
 from __future__ import annotations
@@ -39,11 +41,39 @@ class Literal(Expr):
 @register
 @dataclass(frozen=True)
 class BinaryExpr(Expr):
-    """op in {+,-,*,/,...}; the port evaluates `*`."""
+    """op in {+,-,*,/,%,==,!=,<,<=,>,>=,<=>,and,or,&,|,^,<<,>>}."""
     kind: ClassVar[str] = "binary"
     left: Expr = None  # type: ignore[assignment]
     op: str = "+"
     right: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class IsNull(Expr):
+    kind: ClassVar[str] = "is_null"
+    child: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class IsNotNull(Expr):
+    kind: ClassVar[str] = "is_not_null"
+    child: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class Not(Expr):
+    kind: ClassVar[str] = "not"
+    child: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class Negative(Expr):
+    kind: ClassVar[str] = "negative"
+    child: Expr = None  # type: ignore[assignment]
 
 
 @register
@@ -53,6 +83,56 @@ class Cast(Expr):
     kind: ClassVar[str] = "cast"
     child: Expr = None  # type: ignore[assignment]
     dtype: DataType = field(default_factory=DataType.null)
+
+
+@register
+@dataclass(frozen=True)
+class TryCast(Expr):
+    kind: ClassVar[str] = "try_cast"
+    child: Expr = None  # type: ignore[assignment]
+    dtype: DataType = field(default_factory=DataType.null)
+
+
+@register
+@dataclass(frozen=True)
+class WhenThen(Node):
+    kind: ClassVar[str] = "when_then"
+    when: Expr = None  # type: ignore[assignment]
+    then: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class Case(Expr):
+    kind: ClassVar[str] = "case"
+    branches: Tuple[WhenThen, ...] = ()
+    else_expr: Optional[Expr] = None
+
+
+@register
+@dataclass(frozen=True)
+class InList(Expr):
+    kind: ClassVar[str] = "in_list"
+    child: Expr = None  # type: ignore[assignment]
+    values: Tuple[Expr, ...] = ()
+    negated: bool = False
+
+
+@register
+@dataclass(frozen=True)
+class ScAnd(Expr):
+    """Short-circuit AND (right side only evaluated where left is true)."""
+    kind: ClassVar[str] = "sc_and"
+    left: Expr = None  # type: ignore[assignment]
+    right: Expr = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class ScOr(Expr):
+    kind: ClassVar[str] = "sc_or"
+    left: Expr = None  # type: ignore[assignment]
+    right: Expr = None  # type: ignore[assignment]
 
 
 @register

@@ -1,9 +1,9 @@
 """Physical plan IR nodes (counterpart of auron_tpu/ir/plan.py).
 
-The nodes of the shuffled group-by and global-sort stage pairs: the FFI
-and IPC readers, projection, aggregation, sort, the RSS shuffle writer
-with its partitioning, and the `TaskDefinition` a front end ships.  Fields and `kind` tags are
-the JAX package's, so their JSON is the same.
+The nodes of the port's stages: the FFI and IPC readers, projection,
+filter, limit, aggregation, sort, the RSS shuffle writer with its
+partitioning, and the `TaskDefinition` a front end ships.  Fields and
+`kind` tags are the JAX package's, so their JSON is the same.
 """
 
 from __future__ import annotations
@@ -60,6 +60,23 @@ class Projection(PlanNode):
     child: PlanNode = None  # type: ignore[assignment]
     exprs: Tuple[Expr, ...] = ()
     names: Tuple[str, ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class Filter(PlanNode):
+    kind: ClassVar[str] = "filter"
+    child: PlanNode = None  # type: ignore[assignment]
+    predicates: Tuple[Expr, ...] = ()   # conjunctive
+
+
+@register
+@dataclass(frozen=True)
+class Limit(PlanNode):
+    kind: ClassVar[str] = "limit"
+    child: PlanNode = None  # type: ignore[assignment]
+    limit: int = 0
+    offset: int = 0
 
 
 @register

@@ -62,11 +62,19 @@ class DataType:
     @staticmethod
     def bool_() -> "DataType": return DataType(TypeId.BOOL)
     @staticmethod
+    def int8() -> "DataType": return DataType(TypeId.INT8)
+    @staticmethod
+    def int16() -> "DataType": return DataType(TypeId.INT16)
+    @staticmethod
     def int32() -> "DataType": return DataType(TypeId.INT32)
     @staticmethod
     def int64() -> "DataType": return DataType(TypeId.INT64)
     @staticmethod
     def float64() -> "DataType": return DataType(TypeId.FLOAT64)
+    @staticmethod
+    def date32() -> "DataType": return DataType(TypeId.DATE32)
+    @staticmethod
+    def timestamp_us() -> "DataType": return DataType(TypeId.TIMESTAMP_US)
 
     @property
     def is_integral(self) -> bool: return self.id in _INTEGRAL

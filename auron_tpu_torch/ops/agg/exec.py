@@ -6,10 +6,16 @@ order-preserving key words, flag the boundaries between equal-key runs,
 number the segments, and reduce every agg state over the segments.  The
 grouped batches are staged and merged, `_MERGE_FANIN` at a time, with the
 same reduction over partial states.  Null keys form one group (nulls
-first).  In `partial` mode the partial-agg skipping rule of the JAX
-package applies: once enough rows came in and the groups are nearly as
-many as the rows, the operator emits what it holds and passes the rest
-of its input through, grouped batch by batch.
+first).  A global aggregate (no keys) takes every live row as one
+segment, with no sort and no host read.  Modes: `partial` updates and
+emits states, `final` merges states and finalizes, `single` (the
+converter's default) updates and finalizes in one operator.  A partial
+aggregate over a stream with no rows emits nothing; a final or single
+global aggregate over one emits the one row of `_empty_global_agg`
+(count 0, every other state null).  In `partial` mode the partial-agg
+skipping rule of the JAX package applies: once enough rows came in and
+the groups are nearly as many as the rows, the operator emits what it
+holds and passes the rest of its input through, grouped batch by batch.
 """
 
 from __future__ import annotations
@@ -37,12 +43,8 @@ class AggExec(Operator):
     def __init__(self, child: Operator, exec_mode: str, grouping,
                  grouping_names, aggs: Tuple[AggExpr, ...], agg_names,
                  supports_partial_skipping: bool = False):
-        if exec_mode not in ("partial", "final"):
-            raise NotImplementedError(
-                f"agg mode {exec_mode!r} is not in auron_tpu_torch yet")
-        if not grouping:
-            raise NotImplementedError(
-                "global aggregation is not in auron_tpu_torch yet")
+        if exec_mode not in ("partial", "final", "single"):
+            raise ValueError(f"unknown agg mode {exec_mode!r}")
         in_schema = child.schema
         self.exec_mode = exec_mode
         self.nk = len(grouping)
@@ -58,8 +60,7 @@ class AggExec(Operator):
                       zip(grouping_names, self._key_eval.out_types)]
         self.state_schema = Schema(tuple(
             key_fields + [f for s in self.specs for f in s.state_fields()]))
-        if exec_mode == "partial":
-            out_schema = self.state_schema
+        if exec_mode != "final":
             flat_inputs: List = []
             self._arg_slices: List[Tuple[int, int]] = []
             for a in aggs:
@@ -67,9 +68,9 @@ class AggExec(Operator):
                 flat_inputs.extend(a.children)
                 self._arg_slices.append((start, len(flat_inputs)))
             self._val_eval = build_evaluator(flat_inputs, in_schema)
-        else:
-            out_schema = Schema(tuple(key_fields + [
-                Field(n, a.return_type) for n, a in zip(agg_names, aggs)]))
+        out_schema = self.state_schema if exec_mode == "partial" else \
+            Schema(tuple(key_fields + [Field(n, a.return_type)
+                                       for n, a in zip(agg_names, aggs)]))
         super().__init__(out_schema, [child])
         self.supports_partial_skipping = supports_partial_skipping and \
             exec_mode == "partial" and \
@@ -94,30 +95,32 @@ class AggExec(Operator):
         vals = self._val_eval(b)
         return keys, [vals[s:e] for s, e in self._arg_slices]
 
-    def _reduce(self, keys, vcols, num_rows: int, merge: bool) -> Batch:
+    def _reduce(self, keys, vcols, num_rows: int, merge: bool,
+                device: torch.device) -> Batch:
         cols, n_groups, cap = group_reduce(keys, vcols, num_rows,
-                                           self.specs, merge)
+                                           self.specs, merge, device)
         return Batch(self.state_schema, cols, n_groups, cap)
 
     # -- staged accumulation -------------------------------------------
 
-    def _stage(self, grouped: Batch) -> None:
+    def _stage(self, grouped: Batch, device: torch.device) -> None:
         self._staged.append(grouped)
         if len(self._staged) >= _MERGE_FANIN:
-            self._compact()
+            self._compact(device)
 
-    def _compact(self) -> Optional[Batch]:
+    def _compact(self, device: torch.device) -> Optional[Batch]:
         """Merge the staged grouped batches into one."""
         if len(self._staged) > 1:
             merged = concat_batches(self.state_schema, self._staged)
             self._staged = [self._reduce(
                 merged.columns[:self.nk],
                 self._state_slices(merged.columns[self.nk:]),
-                merged.num_rows, merge=True)]
+                merged.num_rows, merge=True, device=device)]
         return self._staged[0] if self._staged else None
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
         merge_input = self.exec_mode == "final"
+        dev = ctx.device
         input_rows = 0
         passthrough = False
         stream = self.child_stream(ctx)   # one iterator: both loops share
@@ -125,13 +128,13 @@ class AggExec(Operator):
             if b.num_rows == 0:
                 continue
             self._stage(self._reduce(*self._eval(b, merge_input),
-                                     b.num_rows, merge_input))
+                                     b.num_rows, merge_input, dev), dev)
             if not self.supports_partial_skipping:
                 continue
             input_rows += b.num_rows
             if input_rows >= int(conf.get(
                     "auron.partial.agg.skipping.min.rows")):
-                acc = self._compact()
+                acc = self._compact(dev)
                 if acc.num_rows / input_rows >= float(conf.get(
                         "auron.partial.agg.skipping.ratio")):
                     passthrough = True
@@ -143,12 +146,15 @@ class AggExec(Operator):
             for b in stream:
                 if b.num_rows:
                     yield self._reduce(*self._eval(b, False), b.num_rows,
-                                       merge=False)
+                                       merge=False, device=dev)
             return
-        acc = self._compact()
+        acc = self._compact(dev)
         self._staged = []
-        if acc is not None:
-            yield acc if self.exec_mode == "partial" else self._finalize(acc)
+        if acc is None:
+            if self.nk == 0 and self.exec_mode != "partial":
+                yield self._empty_global_agg(dev)
+            return
+        yield acc if self.exec_mode == "partial" else self._finalize(acc)
 
     def _finalize(self, acc: Batch) -> Batch:
         out = list(acc.columns[:self.nk])
@@ -157,11 +163,28 @@ class AggExec(Operator):
             out.append(spec.eval_final(states))
         return Batch(self.schema, out, acc.num_rows, acc.capacity)
 
+    def _empty_global_agg(self, dev: torch.device) -> Batch:
+        """A global aggregate over no rows: one row, Count's state 0 and
+        every other state null, finalized."""
+        cap = bucket_capacity(1)
+        out = []
+        for spec in self.specs:
+            states = []
+            for f in spec.state_fields():
+                valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+                valid[:1] = spec.fn == "count"
+                states.append(DeviceColumn(f.dtype, torch.zeros(
+                    cap, dtype=f.dtype.torch_dtype(), device=dev), valid))
+            out.append(spec.eval_final(states))
+        return Batch(self.schema, out, 1, cap)
 
-def group_reduce(keys: List[DeviceColumn], value_cols: List[List[DeviceColumn]],
-                 num_rows: int, specs: List[AggSpec], merge: bool
+
+def group_reduce(keys: List[DeviceColumn],
+                 value_cols: List[List[DeviceColumn]], num_rows: int,
+                 specs: List[AggSpec], merge: bool, device: torch.device
                  ) -> Tuple[List[DeviceColumn], int, int]:
-    """Sort-based group reduction of the first `num_rows` rows.
+    """Sort-based group reduction of the first `num_rows` rows (with no
+    keys, `_global_reduce` on `device`).
 
     The integral key values are their own order-preserving words.  The
     rows are lexsorted by stable sorts from the last key to the first:
@@ -170,6 +193,8 @@ def group_reduce(keys: List[DeviceColumn], value_cols: List[List[DeviceColumn]],
     at capacity bucket_capacity(n_groups), n_groups, that capacity); the
     group count is read back to the host once."""
     n = num_rows
+    if not keys:
+        return _global_reduce(value_cols, n, specs, merge, device)
     dev = keys[0].data.device
     perm = torch.arange(n, device=dev)
     for k in reversed(keys):
@@ -197,3 +222,23 @@ def group_reduce(keys: List[DeviceColumn], value_cols: List[List[DeviceColumn]],
         out.extend(DeviceColumn(s.dtype, s.data, s.validity & valid)
                    for s in states)
     return out, n_groups, cap
+
+
+def _global_reduce(value_cols: List[List[DeviceColumn]], n: int,
+                   specs: List[AggSpec], merge: bool, device: torch.device
+                   ) -> Tuple[List[DeviceColumn], int, int]:
+    """group_reduce with no keys: the first n rows (n > 0) are segment 0,
+    one group, no sort and no host read."""
+    cap = bucket_capacity(1)
+    seg = torch.zeros(n, dtype=torch.int64, device=device)
+    first = torch.arange(cap, device=device) < 1
+    out: List[DeviceColumn] = []
+    for spec, cols in zip(specs, value_cols):
+        live = [DeviceColumn(c.dtype, c.data[:n], c.validity[:n])
+                for c in cols]
+        states = spec.merge_segments(live, seg, cap) if merge else \
+            spec.update_segments(live, seg, cap)
+        # rows past the one group hold reductions of nothing
+        out.extend(DeviceColumn(s.dtype, s.data, s.validity & first)
+                   for s in states)
+    return out, 1, cap

@@ -1,5 +1,5 @@
 """Aggregate function state machines (counterpart of
-auron_tpu/ops/agg/functions.py): Sum and Count.
+auron_tpu/ops/agg/functions.py): Sum, Count and Average.
 
 Each spec defines
 - state_fields: the partial-state schema a `partial` agg emits;
@@ -7,10 +7,12 @@ Each spec defines
 - merge_segments(states, seg, n): partial states -> n state rows;
 - eval_final(states): states -> result column.
 `seg` holds each row's segment id in [0, n).  Reductions are
-`index_add_` over the segment ids: on the card its float additions
-land in no fixed order, so float sums match other engines to a
-tolerance, not bit for bit.  Spark null semantics: Sum of only nulls is
-null; Count counts non-null values and is never null.
+`segments.sorted_segment_sum` (an `index_add_` over the segment ids: on
+the card its float additions land in no fixed order, so float sums match
+other engines to a tolerance, not bit for bit).  Spark null semantics:
+Sum of only nulls is null; Count counts non-null values and is never
+null; Average is sum / count over the non-null values, null where there
+are none.
 """
 
 from __future__ import annotations
@@ -21,11 +23,7 @@ import torch
 
 from auron_tpu_torch.columnar.batch import DeviceColumn, flat
 from auron_tpu_torch.ir.schema import DataType, Field
-
-
-def _seg_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(
-        0, seg, x)
+from auron_tpu_torch.ops.segments import sorted_segment_sum as _seg_sum
 
 
 class AggSpec:
@@ -88,10 +86,46 @@ class CountSpec(AggSpec):
                                          torch.zeros_like(c.data)), seg, n)
 
 
+class AvgSpec(AggSpec):
+    """avg(expr) over (sum float64, count int64) states; the decimal
+    branch of the JAX package waits for decimal columns."""
+
+    def state_fields(self):
+        return [Field(f"{self.name}#sum", DataType.float64()),
+                Field(f"{self.name}#count", DataType.int64(),
+                      nullable=False)]
+
+    def _states(self, x, valid, counts, seg, n):
+        s = _seg_sum(torch.where(valid, x, torch.zeros_like(x)), seg, n)
+        cnt = _seg_sum(counts, seg, n)
+        return [DeviceColumn(DataType.float64(), s, cnt > 0),
+                DeviceColumn(DataType.int64(), cnt,
+                             torch.ones(n, dtype=torch.bool,
+                                        device=seg.device))]
+
+    def update_segments(self, cols, seg, n):
+        c = cols[0]
+        return self._states(c.data.to(torch.float64), c.validity,
+                            c.validity.to(torch.int64), seg, n)
+
+    def merge_segments(self, states, seg, n):
+        s, c = states
+        return self._states(s.data, s.validity,
+                            torch.where(c.validity, c.data,
+                                        torch.zeros_like(c.data)), seg, n)
+
+    def eval_final(self, states):
+        s, cnt = states
+        avg = s.data / torch.clamp(cnt.data, min=1)
+        return flat(DataType.float64(), avg, cnt.data > 0)
+
+
 def make_spec(fn: str, out_dtype: DataType, name: str) -> AggSpec:
     if fn == "sum" and (out_dtype.is_integral or out_dtype.is_floating):
         return SumSpec(fn, out_dtype, name)
     if fn == "count":
         return CountSpec(fn, DataType.int64(), name)
+    if fn == "avg" and out_dtype.is_floating:
+        return AvgSpec(fn, DataType.float64(), name)
     raise NotImplementedError(
         f"aggregate {fn!r} -> {out_dtype!r} is not in auron_tpu_torch yet")

@@ -10,7 +10,7 @@ tracing are not in this slice.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 
@@ -47,3 +47,13 @@ class Operator:
 
     def count(self, name: str, n: int = 1) -> None:
         self.metrics[name] = self.metrics.get(name, 0) + n
+
+
+def compact_indices(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Stable (ascending) indices of the set bits of a bool mask, and
+    their count: the filter's compaction primitive.  The JAX package
+    pads the indices to a static capacity and keeps the count on the
+    device; here `torch.nonzero` sizes its output by the count, so the
+    count comes back to the host with it, in one read."""
+    idx = torch.nonzero(mask).squeeze(1)
+    return idx, int(idx.shape[0])

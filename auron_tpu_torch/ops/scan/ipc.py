@@ -61,7 +61,10 @@ class FFIReaderExec(Operator):
 
 
 def arrow_to_numpy(rb):
-    """(arrays, validities) of a pyarrow RecordBatch, nulls as zeros."""
+    """(arrays, validities) of a pyarrow RecordBatch, nulls as zeros,
+    each column as the integers or floats of its device layout (as the
+    JAX package's `Batch.from_arrow` imports them): date32 as int32
+    days, a timestamp as int64 microseconds, bool as bool."""
     import pyarrow as pa
     if not isinstance(rb, pa.RecordBatch):
         raise TypeError(f"FFI item of type {type(rb).__name__}: want a "
@@ -69,5 +72,12 @@ def arrow_to_numpy(rb):
     arrays, validities = [], []
     for col in rb.columns:
         validities.append(np.array(col.is_valid()))
-        arrays.append(np.array(col.fill_null(0)))
+        t = col.type
+        if pa.types.is_date32(t):
+            col = col.cast(pa.int32())
+        elif pa.types.is_timestamp(t):
+            col = col.cast(pa.timestamp("us")).cast(pa.int64())
+        fill = False if pa.types.is_boolean(t) else 0
+        arrays.append(np.asarray(col.fill_null(fill)
+                                 .to_numpy(zero_copy_only=False)))
     return arrays, validities

@@ -9,7 +9,7 @@ from typing import Callable, Dict
 from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ops.agg.exec import AggExec
 from auron_tpu_torch.ops.base import Operator
-from auron_tpu_torch.ops.basic import ProjectExec
+from auron_tpu_torch.ops.basic import FilterExec, LimitExec, ProjectExec
 from auron_tpu_torch.ops.scan.ipc import FFIReaderExec, IpcReaderExec
 from auron_tpu_torch.ops.shuffle.writer import RssShuffleWriterExec
 from auron_tpu_torch.ops.sort import SortExec
@@ -20,8 +20,11 @@ class PhysicalPlanner:
         self._arms: Dict[str, Callable[..., Operator]] = {
             "ffi_reader": lambda n: FFIReaderExec(n.schema, n.resource_id),
             "ipc_reader": lambda n: IpcReaderExec(n.schema, n.resource_id),
-            "projection": lambda n: ProjectExec(
-                self.create_plan(n.child), n.exprs, n.names),
+            "projection": self._projection,
+            "filter": lambda n: FilterExec(self.create_plan(n.child),
+                                           n.predicates),
+            "limit": lambda n: LimitExec(self.create_plan(n.child),
+                                         n.limit, n.offset),
             "agg": lambda n: AggExec(
                 self.create_plan(n.child), n.exec_mode, n.grouping,
                 n.grouping_names, n.aggs, n.agg_names,
@@ -33,6 +36,14 @@ class PhysicalPlanner:
                 self.create_plan(n.child), n.partitioning,
                 n.rss_resource_id),
         }
+
+    def _projection(self, n: P.Projection) -> Operator:
+        # a projection over a filter fuses into it, as in the JAX package
+        if n.child.kind == "filter":
+            return FilterExec(self.create_plan(n.child.child),
+                              n.child.predicates, exprs=n.exprs,
+                              names=n.names)
+        return ProjectExec(self.create_plan(n.child), n.exprs, n.names)
 
     def create_plan(self, node: P.PlanNode) -> Operator:
         arm = self._arms.get(node.kind)

@@ -11,7 +11,8 @@ the sources in this checkout.  Phases, each fatal on failure:
    started together) and print the build time;
 2. hold the hash-pid kernel bit-exact against its plain PyTorch version
    on the card, on full-range int64 keys with 10% nulls (n in 1, 3, 127,
-   1025, 8192, 499499, 2^24+3: its vector path and its tail), on views
+   1025, 8192, 499499, 2^24+3: its vector path and its tail; n_parts in
+   1, 2, 4, 7, 200, which covers every exchange of phases 3-12), on views
    that start off a 16-byte boundary (its scalar path) and on all-null
    keys;
 3. run the TPC-DS shuffled group-by stage pair at SF 10 size through the
@@ -28,10 +29,11 @@ the sources in this checkout.  Phases, each fatal on failure:
    the top kernels and host ops;
 6. hold the radix-histogram kernel bit-exact against its plain version
    on the card: n in {128, 256, 512, 1024, 128 x 131, 8192, 144000,
-   524288, 2^24} x b_bits in {0, 1, 6, 8} (clusters of 1, 2, 4 and 8
-   blocks), all-zero and all-same-digit words, a view off a 16-byte
+   524288, 2^20, 2^24} x b_bits in {0, 1, 2, 6, 8} (clusters of 1, 2, 4
+   and 8 blocks), all-zero and all-same-digit words, a view off a 16-byte
    boundary (must raise ValueError), and the writer's partition sizes at
-   n_parts 7 and 200 on row counts that are not multiples of 128;
+   n_parts 1, 2, 4, 7 and 200 on row counts that are not multiples of
+   128 (713000 is q01 stage 1's partial groups per task);
 7. run the global-sort stage pair on the same rows through
    `execute_task_bytes`: 8 map tasks (FFIReader -> Projection ->
    RssShuffleWriter, range partitioning into 200 partitions by bounds
@@ -46,7 +48,29 @@ the sources in this checkout.  Phases, each fatal on failure:
    all-zero words at 524288) against its plain version, its memory
    bound, `torch.bincount` and the launch floor, and a reduce task's
    sort under both strategies (pack-sort and multipass);
-9. profile one sort map task and one sort reduce task.
+9. profile one sort map task and one sort reduce task;
+10. run TPC-DS q96 whole through `execute_task_bytes` as the JAX
+    package's converter lowers it: 8 map tasks (FFIReader -> Filter
+    ss_quantity >= 20 AND ss_sales_price < 120.0 -> partial count ->
+    RssShuffleWriter, single partition) over the store_sales rows with
+    ss_sold_date_sk beside them, and 1 reduce task (IpcReader -> final
+    count -> Limit 100); check the count against numpy exactly and that
+    every map-side batch went through the radix-histogram kernel (b = 0)
+    and none through hash-pid; profile one map task;
+11. run q88c whole the same way: 8 map tasks (FFIReader -> Projection of
+    three CASE band flags -> partial sums -> single-partition writer) and
+    1 reduce task (final sums); check the three band counts exactly;
+    profile one map task;
+12. run the three aggregate stages of q01's threshold subtree over the
+    SF-10 store_returns rows (sampled from the store_sales rows as
+    `it/datagen.py` samples them): 4 map tasks (scan -> partial Sum by
+    (customer, store) -> hash(4) on both keys), 4 tasks (final Sum ->
+    partial Average by store -> hash(2) on the store), 2 tasks (final
+    Average -> threshold = avg * 1.2); check one row per store, the null
+    store included, against numpy to relative 1e-9, the histogram kernel
+    on every writer's batch (b = 2, then b = 1) and hash-pid on every
+    batch of the single-key hash(2) writer; profile one stage-1 map task;
+    print the seconds phases 10-12 took.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -54,6 +78,7 @@ as the last line, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -63,7 +88,11 @@ import numpy as np
 import torch
 
 SF10_STORE_SALES_ROWS = 28_800_991   # TPC-DS store_sales at scale factor 10
+SF10_STORE_RETURNS_ROWS = 2_875_432  # TPC-DS store_returns at scale factor 10
 SF10_CUSTOMERS = 500_000             # TPC-DS customer at scale factor 10
+SF10_STORES = 102                    # TPC-DS store at scale factor 10
+SOLD_DATE_SK = (2_450_816, 2_452_642)  # TPC-DS sold-date keys (inclusive)
+N_RETURN_MAPS = 4                    # half the store_sales splits
 NULL_FRACTION = 0.04                 # per column, a few percent as in dsdgen
 N_MAPS = 8
 N_REDUCE = 200                       # spark.sql.shuffle.partitions default
@@ -133,7 +162,7 @@ def check_kernel(K, dev, rng) -> int:
                                  f"n_parts={n_parts}: max err {err}")
     for n in (1, 3, 127, 1025, 8192, 499_499, 2**24 + 3):
         keys, valid = random_keys(rng, n, dev)
-        for n_parts in (1, 7, 200):
+        for n_parts in (1, 2, 4, 7, 200):
             check(keys, valid, n_parts, f"n={n}")
     # views off a 16-byte boundary take the kernel's scalar path
     keys, valid = random_keys(rng, 499_500, dev)
@@ -148,8 +177,8 @@ def check_kernel(K, dev, rng) -> int:
         if not bool((got == 42 % n_parts).all()):
             raise AssertionError(f"all-null batch: pids != 42 % {n_parts}")
     print(f"phase 2: hash-pid kernel bit-exact with its plain version "
-          f"(n in 1, 3, 127, 1025, 8192, 499499, 2^24+3 x n_parts 1, 7, "
-          f"200; keys[1:] and valid[1:] views; all-null)")
+          f"(n in 1, 3, 127, 1025, 8192, 499499, 2^24+3 x n_parts 1, 2, 4, "
+          f"7, 200; keys[1:] and valid[1:] views; all-null)")
     return worst
 
 
@@ -202,9 +231,11 @@ def stage_plans():
     return map_plan, reduce_plan
 
 
-def map_task(m: int, cols, valid, svc, dev, plan=None, shuffle_id="ss"):
-    """Map task m of `plan` (default: the group-by map plan) through
-    execute_task_bytes, writing into `svc` under `shuffle_id`."""
+def map_task(m: int, cols, valid, svc, dev, plan=None, shuffle_id="ss",
+             source="store_sales", n_maps=N_MAPS):
+    """Map task m of n_maps of `plan` (default: the group-by map plan)
+    through execute_task_bytes, its scan leaf `source` fed split m of the
+    rows, writing into `svc` under `shuffle_id`."""
     from auron_tpu_torch.config import conf
     from auron_tpu_torch.ir import plan as P
     from auron_tpu_torch.ir import serde
@@ -212,54 +243,43 @@ def map_task(m: int, cols, valid, svc, dev, plan=None, shuffle_id="ss"):
     from auron_tpu_torch.runtime.resources import ResourceRegistry
     rows = len(cols[0])
     bs = int(conf.get("auron.batch.size"))
-    lo, hi = m * rows // N_MAPS, (m + 1) * rows // N_MAPS
+    lo, hi = m * rows // n_maps, (m + 1) * rows // n_maps
     res = ResourceRegistry()
     # the front end's scan batches: batch-size slices of the split
-    res.put("store_sales", [
+    res.put(source, [
         ([c[s:min(s + bs, hi)] for c in cols],
          [v[s:min(s + bs, hi)] for v in valid])
         for s in range(lo, hi, bs)])
     res.put("shuffle_writer", svc.rss_writer(shuffle_id, m))
     task = P.TaskDefinition(plan=plan or stage_plans()[0], stage_id=1,
-                            partition_id=m, num_partitions=N_MAPS)
+                            partition_id=m, num_partitions=n_maps)
     return execute_task_bytes(serde.serialize(task), res, device=dev)
 
 
 def run_stage_pair(cols, valid, dev):
     """Phase 3: the stage pair through execute_task_bytes.  Returns the
     reduce outputs, the map results and the two stages' seconds."""
-    from auron_tpu_torch.ir import plan as P
-    from auron_tpu_torch.ir import serde
-    from auron_tpu_torch.ops.shuffle.writer import (
-        InProcessShuffleService, PartitionedBlocks,
-    )
-    from auron_tpu_torch.runtime.executor import execute_task_bytes
-    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     svc = InProcessShuffleService()
     t0 = time.perf_counter()
     map_results = [map_task(m, cols, valid, svc, dev) for m in range(N_MAPS)]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    res = ResourceRegistry()
-    res.put("shuffle_read", PartitionedBlocks(
-        [svc.reduce_blocks("ss", p) for p in range(N_REDUCE)]))
+    blocks = [svc.reduce_blocks("ss", p) for p in range(N_REDUCE)]
     reduce_plan = stage_plans()[1]
-    outs = []
-    for p in range(N_REDUCE):
-        task = P.TaskDefinition(plan=reduce_plan, stage_id=2,
-                                partition_id=p, num_partitions=N_REDUCE)
-        outs.append(execute_task_bytes(serde.serialize(task), res,
-                                       device=dev).to_numpy())
+    outs = [reduce_task(reduce_plan, blocks, 2, p, dev).to_numpy()
+            for p in range(N_REDUCE)]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return outs, map_results, t1 - t0, t2 - t1
 
 
-def _device_us(prof) -> float:
-    """Summed device time of the kernels and copies in a profile."""
+def _device_us(avgs) -> float:
+    """Summed device time of the kernels and copies in a profile's
+    key_averages()."""
     from torch.autograd import DeviceType
     total = 0.0
-    for e in prof.key_averages():
+    for e in avgs:
         if e.device_type == DeviceType.CUDA:
             total += getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
@@ -305,7 +325,7 @@ def _profiled_once(fn, iters: int, kernel: str):
         n = sum(e.count for e in hits)
         us = sum(e.self_device_time_total for e in hits)
         return us / n / 1e3 if n and us > 0 else None
-    us = _device_us(prof)
+    us = _device_us(prof.key_averages())
     return us / iters / 1e3 if us > 0 else None
 
 
@@ -328,12 +348,21 @@ def profile_task(label: str, fn, card: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = _device_us(prof) / 1e6
+    # a whole task's trace holds 10^5-10^6 events; building their Python
+    # objects took a third less time with the collector off (a 25,000-
+    # event trace)
+    t = time.perf_counter()
+    gc.disable()
+    try:
+        avgs = prof.key_averages()
+    finally:
+        gc.enable()
+    parse_s = time.perf_counter() - t
+    busy = _device_us(avgs) / 1e6
     phase = label.split(":")[0]
     print(f"{label} under the profiler: wall {wall:.4f} s, "
           f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f} "
-          f"| {card}")
-    avgs = prof.key_averages()
+          f"(trace read in {parse_s:.1f} s) | {card}")
     dev_rows = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
                       key=lambda e: -(getattr(e, "self_device_time_total",
                                               0.0) or 0.0))[:8]
@@ -345,6 +374,10 @@ def profile_task(label: str, fn, card: str) -> None:
     for e in cpu_rows:
         print(f"{phase}:   host   {e.self_cpu_time_total / 1e3:9.4f} ms "
               f"x{e.count:<6d} {e.key[:70]}")
+    # the trace's events hold reference cycles: collect them here, not
+    # inside the next timed stage
+    del prof, avgs, dev_rows, cpu_rows
+    gc.collect()
 
 
 def profile_map_task(cols, valid, dev, card: str) -> None:
@@ -456,13 +489,13 @@ def check_hist_kernel(K, dev, rng) -> int:
             raise AssertionError(f"radix-hist kernel != plain at {what} "
                                  f"b_bits={b}: max err {err}")
     sizes = (128, 256, 512, 1024, 128 * 131, 8192, 144_000, 524_288,
-             1 << 24)
+             1 << 20, 1 << 24)
     clusters = {K.hist_launch_shape(n)[1] for n in sizes}
     if clusters != {1, 2, 4, 8}:
         raise AssertionError(f"the sizes cover clusters {clusters}")
     for n in sizes:
         words = hist_words(rng, n, dev)
-        for b in (0, 1, 6, 8):
+        for b in (0, 1, 2, 6, 8):
             check(words, b, f"n={n}")
     # skew: every word in one bucket (the writer's zero padding, a null
     # partition)
@@ -471,7 +504,7 @@ def check_hist_kernel(K, dev, rng) -> int:
         # digit 199 in the top byte, as the int32 bit view
         same = (hist_words(rng, n, dev) & 0x00FFFFFF) | \
             ((199 << 24) - (1 << 32))
-        for b in (0, 1, 6, 8):
+        for b in (0, 1, 2, 6, 8):
             check(zeros, b, f"all-zero n={n}")
             check(same, b, f"one digit n={n}")
     before = K.LAUNCHES["radix_bucket_hist"]
@@ -483,8 +516,8 @@ def check_hist_kernel(K, dev, rng) -> int:
         raise AssertionError("a view off a 16-byte boundary did not raise")
     if K.LAUNCHES["radix_bucket_hist"] != before:
         raise AssertionError("the refused view was counted as a launch")
-    for n in (8192, 1000, 8191, 499_499):
-        for n_parts in (7, 200):
+    for n in (8192, 1000, 8191, 499_499, 713_000):
+        for n_parts in (1, 2, 4, 7, 200):
             pids = torch.from_numpy(rng.integers(0, n_parts, n)
                                     .astype(np.int32)).to(dev)
             got = W.sizes_by_hist(pids, n_parts)
@@ -495,11 +528,12 @@ def check_hist_kernel(K, dev, rng) -> int:
                 raise AssertionError(f"writer sizes != bincount at n={n} "
                                      f"n_parts={n_parts}")
     print("phase 6: radix-hist kernel bit-exact with its plain version "
-          "(n in 128, 256, 512, 1024, 16768, 8192, 144000, 524288, 2^24 x "
-          "b_bits 0, 1, 6, 8: clusters of 1, 2, 4, 8; all-zero and "
+          "(n in 128, 256, 512, 1024, 16768, 8192, 144000, 524288, 2^20, "
+          "2^24 x "
+          "b_bits 0, 1, 2, 6, 8: clusters of 1, 2, 4, 8; all-zero and "
           "one-digit words at 8192, 524288); words[1:] raised ValueError; "
-          "writer sizes exact at n in 8192, 1000, 8191, 499499 x n_parts "
-          "7, 200")
+          "writer sizes exact at n in 8192, 1000, 8191, 499499, 713000 x "
+          "n_parts 1, 2, 4, 7, 200")
     return worst
 
 
@@ -625,18 +659,9 @@ def sort_stage_plans(bounds):
 
 def sort_reduce_task(p: int, svc, reduce_plan, dev):
     """Reduce task p of the global sort through execute_task_bytes."""
-    from auron_tpu_torch.ir import plan as P
-    from auron_tpu_torch.ir import serde
-    from auron_tpu_torch.ops.shuffle.writer import PartitionedBlocks
-    from auron_tpu_torch.runtime.executor import execute_task_bytes
-    from auron_tpu_torch.runtime.resources import ResourceRegistry
-    res = ResourceRegistry()
     blocks = [[] for _ in range(N_REDUCE)]
     blocks[p] = svc.reduce_blocks("sort", p)
-    res.put("shuffle_read", PartitionedBlocks(blocks))
-    task = P.TaskDefinition(plan=reduce_plan, stage_id=4,
-                            partition_id=p, num_partitions=N_REDUCE)
-    return execute_task_bytes(serde.serialize(task), res, device=dev)
+    return reduce_task(reduce_plan, blocks, 4, p, dev)
 
 
 def run_sort_stage_pair(cols, valid, plans, dev):
@@ -754,6 +779,328 @@ def profile_sort_tasks(cols, valid, svc, plans, dev, card: str) -> None:
                                   "sort"), card)
     profile_task("phase 9: sort reduce task 0",
                  lambda: sort_reduce_task(0, svc, plans[1], dev), card)
+
+# ---------------------------------------------------------------------------
+# TPC-DS q96, q88c and q01's aggregate stages (phases 10 to 12)
+# ---------------------------------------------------------------------------
+
+def make_sold_date_sk(rows: int, seed: int):
+    """ss_sold_date_sk uniform over the TPC-DS sold-date keys, with
+    NULL_FRACTION nulls, from a generator of its own (the other columns
+    stay as phase 3 made them)."""
+    rng = np.random.default_rng([seed, 96])
+    lo, hi = SOLD_DATE_SK
+    return (rng.integers(lo, hi + 1, rows, dtype=np.int64),
+            rng.random(rows) >= NULL_FRACTION)
+
+
+def make_store_returns(cols, valid, seed: int):
+    """store_returns as `it/datagen.py` draws it, at the store_sales
+    rows' scale (2,875,432 rows at SF 10): returned sales sampled without
+    replacement, the sale's customer, a store uniform over the SF-10
+    stores (the sales rows carry none), the amount round(quantity x
+    price x U(0.1, 1.0), 2), each column with NULL_FRACTION nulls."""
+    rows = len(cols[0])
+    n = max(1, rows * SF10_STORE_RETURNS_ROWS // SF10_STORE_SALES_ROWS)
+    rng = np.random.default_rng([seed, 1])
+    ridx = rng.choice(rows, n, replace=False)
+    cust = cols[0][ridx]
+    store = rng.integers(1, SF10_STORES + 1, n, dtype=np.int64)
+    amt = np.round(cols[1][ridx].astype(np.float64) * cols[2][ridx] *
+                   rng.uniform(0.1, 1.0, n), 2)
+    return [cust, store, amt], [rng.random(n) >= NULL_FRACTION
+                                for _ in range(3)]
+
+
+def store_sales_plans(name: str):
+    """(map plan, reduce plan) of q96 or q88c in the port's IR, as the JAX
+    package's converter lowers them (tests/test_torch_corpus_stages.py
+    holds them to its JSON), the parquet scan an FFIReader."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    i32, i64, f64 = DataType.int32(), DataType.int64(), DataType.float64()
+    qty, price = E.col("ss_quantity"), E.col("ss_sales_price")
+
+    def lit(v, t):
+        return E.Literal(value=v, dtype=t)
+
+    def writer(child):
+        return P.RssShuffleWriter(
+            child=child, partitioning=P.Partitioning(mode="single",
+                                                     num_partitions=1),
+            rss_resource_id="shuffle_writer")
+
+    def agg(child, mode, aggs, names):
+        return P.Agg(child=child, exec_mode=mode, aggs=aggs, agg_names=names)
+    if name == "q96":
+        scan = P.FFIReader(schema=Schema.of(
+            Field("ss_sold_date_sk", i64), Field("ss_quantity", i32),
+            Field("ss_sales_price", f64)), resource_id="store_sales")
+        aggs = (E.AggExpr(fn="count", children=(qty,), return_type=i64),)
+        filt = P.Filter(child=scan, predicates=(
+            E.BinaryExpr(left=qty, op=">=", right=lit(20, i32)),
+            E.BinaryExpr(left=price, op="<", right=lit(120.0, f64))))
+        states = Schema.of(Field("cnt#count", i64, nullable=False))
+        return (writer(agg(filt, "partial", aggs, ("cnt",))),
+                P.Limit(child=agg(P.IpcReader(schema=states,
+                                              resource_id="shuffle_read"),
+                                  "final", aggs, ("cnt",)), limit=100))
+    scan = P.FFIReader(schema=Schema.of(Field("ss_quantity", i32),
+                                        Field("ss_sales_price", f64)),
+                       resource_id="store_sales")
+
+    def flag(cond):
+        return E.Case(branches=(E.WhenThen(when=cond, then=lit(1, i64)),),
+                      else_expr=lit(0, i64))
+    bands = (flag(E.BinaryExpr(left=qty, op="<=", right=lit(20, i32))),
+             flag(E.ScAnd(left=E.BinaryExpr(left=qty, op=">",
+                                            right=lit(20, i32)),
+                          right=E.BinaryExpr(left=qty, op="<=",
+                                             right=lit(60, i32)))),
+             flag(E.BinaryExpr(left=qty, op=">", right=lit(60, i32))))
+    names = ("n1", "n2", "n3")
+    aggs = tuple(E.AggExpr(fn="sum", children=(E.col(b),), return_type=i64)
+                 for b in ("b1", "b2", "b3"))
+    proj = P.Projection(child=scan, exprs=bands, names=("b1", "b2", "b3"))
+    states = Schema.of(*(Field(f"{n}#sum", i64) for n in names))
+    return (writer(agg(proj, "partial", aggs, names)),
+            agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
+                "final", aggs, names))
+
+
+def q01_plans():
+    """The three aggregate stages of q01's threshold subtree in the port's
+    IR, as the converter lowers them: (stage-1 map plan, stage-2 map plan,
+    stage-3 plan)."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    i64, f64 = DataType.int64(), DataType.float64()
+    cust, store = E.col("sr_customer_sk"), E.col("sr_store_sk")
+    keys, key_names = (cust, store), ("sr_customer_sk", "sr_store_sk")
+    ctr = (E.AggExpr(fn="sum", children=(E.col("sr_return_amt"),),
+                     return_type=f64),)
+    avg = (E.AggExpr(fn="avg", children=(E.col("ctr_total_return"),),
+                     return_type=f64),)
+    scan = P.FFIReader(schema=Schema.of(
+        Field("sr_customer_sk", i64), Field("sr_store_sk", i64),
+        Field("sr_return_amt", f64)), resource_id="store_returns")
+    stage1 = P.RssShuffleWriter(
+        child=P.Agg(child=scan, exec_mode="partial", grouping=keys,
+                    grouping_names=key_names, aggs=ctr,
+                    agg_names=("ctr_total_return",)),
+        partitioning=P.Partitioning(mode="hash", num_partitions=4,
+                                    expressions=keys),
+        rss_resource_id="shuffle_writer")
+    ctr_states = Schema.of(Field("sr_customer_sk", i64),
+                           Field("sr_store_sk", i64),
+                           Field("ctr_total_return#sum", f64))
+    final_ctr = P.Agg(child=P.IpcReader(schema=ctr_states,
+                                        resource_id="shuffle_read"),
+                      exec_mode="final", grouping=keys,
+                      grouping_names=key_names, aggs=ctr,
+                      agg_names=("ctr_total_return",))
+    stage2 = P.RssShuffleWriter(
+        child=P.Agg(child=final_ctr, exec_mode="partial", grouping=(store,),
+                    grouping_names=("sr_store_sk",), aggs=avg,
+                    agg_names=("avg_return",)),
+        partitioning=P.Partitioning(mode="hash", num_partitions=2,
+                                    expressions=(store,)),
+        rss_resource_id="shuffle_writer")
+    avg_states = Schema.of(Field("sr_store_sk", i64),
+                           Field("avg_return#sum", f64),
+                           Field("avg_return#count", i64, nullable=False))
+    stage3 = P.Projection(
+        child=P.Agg(child=P.IpcReader(schema=avg_states,
+                                      resource_id="shuffle_read"),
+                    exec_mode="final", grouping=(store,),
+                    grouping_names=("sr_store_sk",), aggs=avg,
+                    agg_names=("avg_return",)),
+        exprs=(store, E.BinaryExpr(left=E.col("avg_return"), op="*",
+                                   right=E.Literal(value=1.2, dtype=f64))),
+        names=("avg_store_sk", "threshold"))
+    return stage1, stage2, stage3
+
+
+def reduce_task(plan, blocks, stage: int, p: int, dev, writer=None):
+    """Task p of a stage that reads an exchange's per-partition `blocks`
+    (and, with `writer`, writes into another exchange) through
+    execute_task_bytes."""
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.ops.shuffle.writer import PartitionedBlocks
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    res = ResourceRegistry()
+    res.put("shuffle_read", PartitionedBlocks(blocks))
+    if writer is not None:
+        res.put("shuffle_writer", writer)
+    task = P.TaskDefinition(plan=plan, stage_id=stage, partition_id=p,
+                            num_partitions=len(blocks))
+    return execute_task_bytes(serde.serialize(task), res, device=dev)
+
+
+def run_shuffle_stage(plan, svc, shuffle_id, n_tasks, task_fn):
+    """Run n_tasks tasks (task_fn(m)), then return their results, the
+    seconds they took and the exchange's blocks per reduce partition."""
+    t0 = time.perf_counter()
+    results = [task_fn(m) for m in range(n_tasks)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_parts = plan.partitioning.num_partitions
+    return results, secs, [svc.reduce_blocks(shuffle_id, p)
+                           for p in range(n_parts)]
+
+
+def writer_launches(results):
+    """(map-side batches, batches whose sizes came from the histogram)."""
+    return (sum(r.metrics.get("shuffle_write_batches", 0) for r in results),
+            sum(r.metrics.get("sizes_by_hist", 0) for r in results))
+
+
+def run_global_query(name: str, cols, valid, dev, K, card: str):
+    """Phases 10 and 11: q96 or q88c, 8 map tasks into one partition and
+    one reduce task.  Returns {column: (data, validity)} and the path's
+    launches."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    map_plan, reduce_plan = store_sales_plans(name)
+    svc = InProcessShuffleService()
+    K.reset_launches()
+    maps, map_s, blocks = run_shuffle_stage(
+        map_plan, svc, name, N_MAPS,
+        lambda m: map_task(m, cols, valid, svc, dev, map_plan, name))
+    t = time.perf_counter()
+    out = reduce_task(reduce_plan, blocks, 2, 0, dev).to_numpy()
+    torch.cuda.synchronize()
+    reduce_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    pushed, by_hist = writer_launches(maps)
+    if not pushed or launches["radix_bucket_hist"] != pushed or \
+            by_hist != pushed:
+        raise AssertionError(f"{name}: radix-hist kernel launched "
+                             f"{launches['radix_bucket_hist']} times for "
+                             f"{pushed} map-side batches")
+    if launches["hash_partition_ids_i64"]:
+        raise AssertionError(f"{name}: the single exchange launched the "
+                             f"hash kernel")
+    phase = {"q96": 10, "q88c": 11}[name]
+    print(f"phase {phase}: {name} map stage {map_s:.3f} s "
+          f"({len(cols[0]) / map_s:.0f} rows/s), reduce stage "
+          f"{reduce_s:.4f} s, {pushed} map-side batches = "
+          f"{launches['radix_bucket_hist']} radix-hist launches (b = 0), "
+          f"0 hash-pid launches | {card}")
+    return out, launches
+
+
+def check_q96(out, cols, valid) -> int:
+    _, qty, price = cols
+    _, qv, pv = valid
+    exp = int(np.sum(qv & pv & (qty >= 20) & (price < 120.0)))
+    got, gv = out["cnt"]
+    if got.tolist() != [exp] or not gv.all():
+        raise AssertionError(f"q96 count {got.tolist()} != numpy {exp}")
+    return exp
+
+
+def check_q88c(out, cols, valid):
+    qty, qv = cols[1], valid[1]
+    exp = [int(np.sum(qv & (qty <= 20))),
+           int(np.sum(qv & (qty > 20) & (qty <= 60))),
+           int(np.sum(qv & (qty > 60)))]
+    got = [out[n][0].tolist() for n in ("n1", "n2", "n3")]
+    if got != [[e] for e in exp] or \
+            not all(out[n][1].all() for n in ("n1", "n2", "n3")):
+        raise AssertionError(f"q88c bands {got} != numpy {exp}")
+    return exp
+
+
+def run_q01_stages(rcols, rvalid, dev, K, card: str):
+    """Phase 12: the three aggregate stages of q01's threshold subtree.
+    Returns the stage-3 outputs and the path's launches."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    s1, s2, s3 = q01_plans()
+    svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
+    K.reset_launches()
+    maps1, t1, blocks1 = run_shuffle_stage(
+        s1, svc1, "ctr", N_RETURN_MAPS,
+        lambda m: map_task(m, rcols, rvalid, svc1, dev, s1, "ctr",
+                           "store_returns", N_RETURN_MAPS))
+    after1 = dict(K.LAUNCHES)
+    maps2, t2, blocks2 = run_shuffle_stage(
+        s2, svc2, "avg", len(blocks1),
+        lambda p: reduce_task(s2, blocks1, 2, p, dev,
+                              svc2.rss_writer("avg", p)))
+    after2 = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    outs = [reduce_task(s3, blocks2, 3, p, dev).to_numpy()
+            for p in range(len(blocks2))]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    pushed1, hist1 = writer_launches(maps1)
+    pushed2, hist2 = writer_launches(maps2)
+    if not pushed1 or after1["radix_bucket_hist"] != pushed1 or \
+            hist1 != pushed1 or after1["hash_partition_ids_i64"]:
+        raise AssertionError(f"q01 stage 1: {after1} for {pushed1} "
+                             f"map-side batches (want the histogram on "
+                             f"each, no hash-pid: two keys)")
+    stage2 = {k: after2[k] - after1[k] for k in after2}
+    if not pushed2 or stage2["radix_bucket_hist"] != pushed2 or \
+            hist2 != pushed2 or stage2["hash_partition_ids_i64"] != pushed2:
+        raise AssertionError(f"q01 stage 2: {stage2} for {pushed2} "
+                             f"map-side batches (want both kernels on each)")
+    if launches != after2:
+        raise AssertionError("q01 stage 3 launched a kernel")
+    print(f"phase 12: q01 stage 1 (scan -> partial sum -> hash(4)) "
+          f"{t1:.3f} s ({len(rcols[0]) / t1:.0f} rows/s), stage 2 (final sum -> "
+          f"partial avg -> hash(2)) {t2:.3f} s, stage 3 (final avg -> "
+          f"threshold) {t3:.4f} s; stage 1: {pushed1} map-side batches = "
+          f"{after1['radix_bucket_hist']} radix-hist launches (b = 2), 0 "
+          f"hash-pid; stage 2: {pushed2} = {stage2['radix_bucket_hist']} "
+          f"radix-hist (b = 1) = {stage2['hash_partition_ids_i64']} hash-pid "
+          f"launches | {card}")
+    return outs, launches
+
+
+def check_q01(outs, rcols, rvalid) -> int:
+    """One row per store (the null store included), each 1.2 x the mean
+    of the store's (customer, store) sums over numpy's group-by (a null
+    customer is a group of its own), to relative 1e-9.  Returns the
+    stores."""
+    cust, store, amt = rcols
+    cv, sv, av = rvalid
+    ck = np.where(cv, cust, -1)
+    sk = np.where(sv, store, -1)
+    pair, inv = np.unique(ck * (SF10_STORES + 2) + (sk + 1),
+                          return_inverse=True)
+    sums = np.bincount(inv, weights=np.where(av, amt, 0.0))
+    has = np.bincount(inv, weights=av) > 0
+    pair_store = pair % (SF10_STORES + 2) - 1
+    stores, sinv = np.unique(pair_store, return_inverse=True)
+    n = np.bincount(sinv, weights=has)
+    mean = np.bincount(sinv, weights=np.where(has, sums, 0.0)) / \
+        np.maximum(n, 1)
+    exp = {(None if s < 0 else int(s)): (1.2 * m if c else None)
+           for s, m, c in zip(stores, mean, n)}
+    got = {}
+    for o in outs:
+        (k, kv), (t, tv) = o["avg_store_sk"], o["threshold"]
+        for key, ok, val, vok in zip(k, kv, t, tv):
+            key = int(key) if ok else None
+            if key in got:
+                raise AssertionError(f"q01: store {key} appears twice")
+            got[key] = float(val) if vok else None
+    if set(got) != set(exp) or None not in got:
+        raise AssertionError(f"q01: stores {sorted(got, key=str)} != numpy "
+                             f"{sorted(exp, key=str)}")
+    for key, e in exp.items():
+        g = got[key]
+        if (g is None) != (e is None) or \
+                (e is not None and abs(g - e) > 1e-9 * abs(e)):
+            raise AssertionError(f"q01: store {key} threshold {g} != numpy "
+                                 f"{e}")
+    return len(exp)
 
 
 def main() -> int:
@@ -898,6 +1245,55 @@ def main() -> int:
           f"ms by profiler | {card}")
     time_reduce_sort(svc, dev, card)
     profile_sort_tasks(cols, valid, svc, plans, dev, card)
+    del svc
+
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    t = new_phases = time.perf_counter()
+    date_sk, date_valid = make_sold_date_sk(args.rows, args.seed)
+    q96_cols = [date_sk, cols[1], cols[2]]
+    q96_valid = [date_valid, valid[1], valid[2]]
+    print(f"phase 10: ss_sold_date_sk made in "
+          f"{time.perf_counter() - t:.2f} s")
+    out, q96_launches = run_global_query("q96", q96_cols, q96_valid, dev, K,
+                                         card)
+    print(f"phase 10: q96 count {check_q96(out, cols, valid)} equal to "
+          f"numpy | {card}")
+    q96_map = store_sales_plans("q96")[0]
+    profile_task("phase 10: q96 map task 0",
+                 lambda: map_task(0, q96_cols, q96_valid,
+                                  InProcessShuffleService(), dev, q96_map,
+                                  "q96"), card)
+    del q96_cols, q96_valid, date_sk, date_valid
+
+    q88_cols, q88_valid = [cols[1], cols[2]], [valid[1], valid[2]]
+    out, q88_launches = run_global_query("q88c", q88_cols, q88_valid, dev,
+                                         K, card)
+    print(f"phase 11: q88c bands {check_q88c(out, cols, valid)} equal to "
+          f"numpy | {card}")
+    q88_map = store_sales_plans("q88c")[0]
+    profile_task("phase 11: q88c map task 0",
+                 lambda: map_task(0, q88_cols, q88_valid,
+                                  InProcessShuffleService(), dev, q88_map,
+                                  "q88c"), card)
+
+    t = time.perf_counter()
+    rcols, rvalid = make_store_returns(cols, valid, args.seed)
+    print(f"phase 12: {len(rcols[0])} store_returns rows made in "
+          f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    outs, q01_launches = run_q01_stages(rcols, rvalid, dev, K, card)
+    t = time.perf_counter()
+    stores = check_q01(outs, rcols, rvalid)
+    print(f"phase 12: q01 thresholds of {stores} stores (the null store "
+          f"included) equal to numpy (checked in "
+          f"{time.perf_counter() - t:.1f} s), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    s1 = q01_plans()[0]
+    profile_task("phase 12: q01 stage-1 map task 0",
+                 lambda: map_task(0, rcols, rvalid,
+                                  InProcessShuffleService(), dev, s1, "ctr",
+                                  "store_returns", N_RETURN_MAPS), card)
+    print(f"phases 10-12: {time.perf_counter() - new_phases:.1f} s | {card}")
 
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all "
           f"| {card}")
@@ -908,7 +1304,10 @@ def main() -> int:
         "launches": launches["hash_partition_ids_i64"],
         "launches_by_path": {
             "hash_group_by": launches["hash_partition_ids_i64"],
-            "global_sort": sort_launches["hash_partition_ids_i64"]},
+            "global_sort": sort_launches["hash_partition_ids_i64"],
+            "q96": q96_launches["hash_partition_ids_i64"],
+            "q88c": q88_launches["hash_partition_ids_i64"],
+            "q01_stages": q01_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -918,7 +1317,10 @@ def main() -> int:
         "launches": sort_launches["radix_bucket_hist"],
         "launches_by_path": {
             "hash_group_by": launches["radix_bucket_hist"],
-            "global_sort": sort_launches["radix_bucket_hist"]},
+            "global_sort": sort_launches["radix_bucket_hist"],
+            "q96": q96_launches["radix_bucket_hist"],
+            "q88c": q88_launches["radix_bucket_hist"],
+            "q01_stages": q01_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

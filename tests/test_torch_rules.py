@@ -56,7 +56,9 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"kernels_cuda.py", "executor.py", "chip_smoke.py", "sort.py",
             "sort_keys.py", "radix_sort.py", "strategy.py",
-            "partitioner.py", "writer.py"} <= names
+            "partitioner.py", "writer.py", "typing.py", "cast.py",
+            "compiler.py", "segments.py", "basic.py", "functions.py",
+            "exec.py", "ipc.py", "planner.py"} <= names
 
 
 def test_import_leaves_jax_out():

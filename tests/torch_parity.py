@@ -108,8 +108,14 @@ def jax_columns(batches, names):
             out[name] = (np.zeros(0), np.zeros(0, bool))
             continue
         col = pa.chunked_array(arrs).combine_chunks()
-        out[name] = (np.asarray(col.fill_null(0).to_numpy(
-            zero_copy_only=False)), np.asarray(col.is_valid()))
+        valid = np.asarray(col.is_valid())
+        if pa.types.is_date32(col.type):
+            col = col.cast(pa.int32())
+        elif pa.types.is_timestamp(col.type):
+            col = col.cast(pa.int64())
+        fill = False if pa.types.is_boolean(col.type) else 0
+        out[name] = (np.asarray(col.fill_null(fill).to_numpy(
+            zero_copy_only=False)), valid)
     return out
 
 
@@ -174,3 +180,48 @@ def sort_reduce_plan(fetch_limit=None, fetch_offset=0):
                                       resource_id="shuffle_read"),
                    sort_exprs=sort_exprs(), fetch_limit=fetch_limit,
                    fetch_offset=fetch_offset)
+
+
+# -- one task through both engines -------------------------------------------
+
+def plan_source(plan):
+    """The resource id of a plan's leaf reader."""
+    while not hasattr(plan, "resource_id"):
+        plan = plan.child
+    return plan.resource_id
+
+
+def run_both(plan, jax_items, port_items, resources=None):
+    """The same serialized TaskDefinition through auron_tpu and
+    auron_tpu_torch (on the CPU), the leaf reader fed `jax_items` and
+    `port_items`; `resources` adds (id, jax value, port value) triples.
+    Returns (port ExecutionResult, JAX ExecutionResult)."""
+    from auron_tpu.ir import serde as jserde
+    from auron_tpu.runtime.executor import execute_task_bytes as jax_execute
+    from auron_tpu.runtime.resources import ResourceRegistry as JaxResources
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    data = jserde.serialize(JP.TaskDefinition(plan=plan), codec="zlib")
+    jres, res = JaxResources(), ResourceRegistry()
+    jres.put(plan_source(plan), jax_items)
+    res.put(plan_source(plan), port_items)
+    for rid, jv, pv in resources or ():
+        jres.put(rid, jv)
+        res.put(rid, pv)
+    port = execute_task_bytes(data, res, device="cpu")
+    return port, jax_execute(data, jres)
+
+
+def assert_same_rows(got, exp, names, float_rel=0.0):
+    """Ordered tables: the same validity everywhere, the same values
+    under it (floats to relative `float_rel`, 0 = bit for bit)."""
+    for name in names:
+        gd, gv = got[name]
+        ed, ev = exp[name]
+        np.testing.assert_array_equal(gv, ev, err_msg=name)
+        gd, ed = gd[gv], ed[ev].astype(gd.dtype)
+        if gd.dtype.kind == "f" and float_rel:
+            np.testing.assert_allclose(gd, ed, rtol=float_rel, atol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(gd, ed, err_msg=name)
