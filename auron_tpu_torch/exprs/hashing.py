@@ -91,7 +91,8 @@ def hash_float64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
 def hash_column(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
     """Per-type dispatch; null rows keep the incoming seed."""
     tid = col.dtype.id
-    if tid == TypeId.INT32:
+    if tid in (TypeId.BOOL, TypeId.INT8, TypeId.INT16, TypeId.INT32,
+               TypeId.DATE32):
         h = hash_int32(col.data, seed)
     elif tid in (TypeId.INT64, TypeId.TIMESTAMP_US):
         h = hash_int64(col.data, seed)

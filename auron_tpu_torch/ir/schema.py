@@ -97,6 +97,11 @@ class DataType:
         return self.id.name.lower()
 
 
+def is_device_type(dtype: DataType) -> bool:
+    """Whether a column of this type has a flat device layout here."""
+    return dtype.id in _TORCH_DTYPES
+
+
 @dataclass(frozen=True)
 class Field:
     name: str

@@ -1,15 +1,22 @@
 """Aggregation operator, sort-based grouping on the device (counterpart
 of auron_tpu/ops/agg/exec.py: `AggExec` and `_group_reduce_body`).
 
-Per input batch: evaluate the keys, stable-sort the live rows by the
-order-preserving key words, flag the boundaries between equal-key runs,
-number the segments, and reduce every agg state over the segments.  The
-grouped batches are staged and merged, `_MERGE_FANIN` at a time, with the
-same reduction over partial states.  Null keys form one group (nulls
-first).  A global aggregate (no keys) takes every live row as one
-segment, with no sort and no host read.  Modes: `partial` updates and
-emits states, `final` merges states and finalizes, `single` (the
-converter's default) updates and finalizes in one operator.  A partial
+Per input batch: evaluate the keys, encode them into the
+order-preserving key words of ops/sort_keys.py (ascending, nulls first),
+stable-sort the live rows by the words, flag the boundaries between
+equal-key runs (`keys_equal_prev`), number the segments, and reduce every
+agg state over the segments.  The grouped batches are staged and merged,
+`_MERGE_FANIN` at a time, with the same reduction over partial states.
+Every key type the encoder holds groups: bool, int8/16/32/64, date32,
+timestamp and float64.  Null keys form one group (nulls first).  Float64
+keys group as Spark's `NormalizeFloatingNumbers` leaves them: -0.0 with
+0.0 and every NaN together, and the key comes out normalized (0.0, the
+positive quiet NaN); the JAX package's words keep -0.0 apart from 0.0
+and split NaNs by sign (ROADMAP Queue 3).  A global aggregate (no keys)
+takes every live row as one segment, with no sort and no host read.
+Modes: `partial` updates and emits states, `final` merges states and
+finalizes, `single` (the converter's default) updates and finalizes in
+one operator.  A partial
 aggregate over a stream with no rows emits nothing; a final or single
 global aggregate over one emits the one row of `_empty_global_agg`
 (count 0, every other state null).  In `partial` mode the partial-agg
@@ -30,9 +37,13 @@ from auron_tpu_torch.columnar.batch import (
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs.compiler import build_evaluator
 from auron_tpu_torch.ir.expr import AggExpr
-from auron_tpu_torch.ir.schema import Field, Schema
+from auron_tpu_torch.ir.schema import Field, Schema, TypeId
 from auron_tpu_torch.ops.agg.functions import AggSpec, make_spec
 from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.ops.sort_keys import (
+    encode_sort_keys, encode_sort_keys_bits, keys_equal_prev,
+    lexsort_indices, normalize_f64, value_bits,
+)
 
 # staged grouped batches merged at once (the JAX package's
 # `auron.agg.merge.fanin` default)
@@ -52,10 +63,7 @@ class AggExec(Operator):
                                      for a, n in zip(aggs, agg_names)]
         self._key_eval = build_evaluator(grouping, in_schema)
         for t in self._key_eval.out_types:
-            if not t.is_integral:
-                raise NotImplementedError(
-                    f"grouping key of type {t!r} is not in auron_tpu_torch "
-                    f"yet")
+            value_bits(t)          # raises for a type it cannot encode
         key_fields = [Field(n, t) for n, t in
                       zip(grouping_names, self._key_eval.out_types)]
         self.state_schema = Schema(tuple(
@@ -184,35 +192,28 @@ def group_reduce(keys: List[DeviceColumn],
                  specs: List[AggSpec], merge: bool, device: torch.device
                  ) -> Tuple[List[DeviceColumn], int, int]:
     """Sort-based group reduction of the first `num_rows` rows (with no
-    keys, `_global_reduce` on `device`).
-
-    The integral key values are their own order-preserving words.  The
-    rows are lexsorted by stable sorts from the last key to the first:
-    per key by value, then by validity, so nulls come first and all null
-    keys of a column fall together.  Returns (key columns + state columns
-    at capacity bucket_capacity(n_groups), n_groups, that capacity); the
+    keys, `_global_reduce` on `device`), as the JAX package's
+    `_group_reduce_body`: the keys' words (ascending, nulls first) are
+    stably lexsorted, and a row whose words differ from the previous
+    row's starts a group.  Returns (key columns + state columns at
+    capacity bucket_capacity(n_groups), n_groups, that capacity); the
     group count is read back to the host once."""
     n = num_rows
     if not keys:
         return _global_reduce(value_cols, n, specs, merge, device)
-    dev = keys[0].data.device
-    perm = torch.arange(n, device=dev)
-    for k in reversed(keys):
-        perm = perm[torch.sort(k.data[:n][perm], stable=True).indices]
-        perm = perm[torch.sort(k.validity[:n][perm].to(torch.uint8),
-                               stable=True).indices]
-    boundary = torch.zeros(n, dtype=torch.bool, device=dev)
-    boundary[0] = True
-    for k in keys:
-        d, v = k.data[:n][perm], k.validity[:n][perm]
-        boundary[1:] |= (d[1:] != d[:-1]) | (v[1:] != v[:-1])
+    live = [DeviceColumn(k.dtype, k.data[:n], k.validity[:n]) for k in keys]
+    words = encode_sort_keys(live, [(True, True)] * len(live))
+    perm = lexsort_indices(words, n, n, encode_sort_keys_bits(live))
+    boundary = ~keys_equal_prev([w[perm] for w in words])
     seg = torch.cumsum(boundary, 0) - 1
     first = torch.nonzero(boundary).squeeze(1)
     n_groups = int(first.shape[0])
     cap = bucket_capacity(n_groups)
+    dev = perm.device
     valid = torch.arange(cap, device=dev) < n_groups
     key_src = torch.nn.functional.pad(perm[first], (0, cap - n_groups))
-    out: List[DeviceColumn] = [k.gather(key_src, valid) for k in keys]
+    out: List[DeviceColumn] = [_group_key(k.gather(key_src, valid))
+                               for k in keys]
     for spec, cols in zip(specs, value_cols):
         scols = [DeviceColumn(c.dtype, c.data[:n][perm], c.validity[:n][perm])
                  for c in cols]
@@ -222,6 +223,13 @@ def group_reduce(keys: List[DeviceColumn],
         out.extend(DeviceColumn(s.dtype, s.data, s.validity & valid)
                    for s in states)
     return out, n_groups, cap
+
+
+def _group_key(k: DeviceColumn) -> DeviceColumn:
+    """A group's key as Spark emits it: a float64 key normalized."""
+    if k.dtype.id != TypeId.FLOAT64:
+        return k
+    return DeviceColumn(k.dtype, normalize_f64(k.data), k.validity)
 
 
 def _global_reduce(value_cols: List[List[DeviceColumn]], n: int,

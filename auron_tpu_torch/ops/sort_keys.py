@@ -58,11 +58,23 @@ def value_bits(dtype: DataType) -> int:
         f"sort keys of type {dtype!r} are not in auron_tpu_torch yet")
 
 
-def _f64_word(x: torch.Tensor) -> torch.Tensor:
-    x = torch.where(x == 0, 0.0, x)                         # -0.0 -> 0.0
-    x = torch.where(torch.isnan(x), float("nan"), x)        # one NaN
-    b = x.view(torch.int64)
+def normalize_f64(x: torch.Tensor) -> torch.Tensor:
+    """-0.0 as 0.0 and every NaN as the positive quiet NaN, as Spark's
+    `NormalizeFloatingNumbers` emits grouping keys."""
+    x = torch.where(x == 0, 0.0, x)
+    return torch.where(torch.isnan(x), float("nan"), x)
+
+
+def f64_word(x: torch.Tensor) -> torch.Tensor:
+    """The order-preserving int64 word of a float64 (normalized first):
+    Spark's order, -0.0 equal to 0.0, every NaN equal and above +inf."""
+    b = normalize_f64(x).view(torch.int64)
     return torch.where(b >= 0, b, b ^ F64_NEG_FLIP)
+
+
+def f64_from_word(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of `f64_word` on its image: the (normalized) float64."""
+    return torch.where(w >= 0, w, w ^ F64_NEG_FLIP).view(torch.float64)
 
 
 def encode_key_column(col: DeviceColumn, asc: bool = True,
@@ -72,15 +84,16 @@ def encode_key_column(col: DeviceColumn, asc: bool = True,
     tid = col.dtype.id
     nbits = value_bits(col.dtype)
     if tid == TypeId.FLOAT64:
-        w = _f64_word(col.data)
+        w = f64_word(col.data)
     elif tid in NARROW_INTS:
         w = col.data.to(torch.int64) + (1 << 31)
     else:   # bool, int64, timestamp
         w = col.data.to(torch.int64)
     if not asc:
         w = ~w if nbits == 64 else w ^ MASK32
-    null_rank = torch.where(col.validity, int(nulls_first),
-                            int(not nulls_first)).to(torch.int64)
+    # the rank is 1 where the row sorts after the other kind
+    null_rank = (col.validity if nulls_first else ~col.validity) \
+        .to(torch.int64)
     return [null_rank, w]
 
 
@@ -112,7 +125,10 @@ def encode_sort_keys_bits(cols: Sequence[DeviceColumn]) -> List[int]:
 def lexsort_indices(words: List[torch.Tensor], num_rows: int, capacity: int,
                     bits: Optional[List[int]] = None) -> torch.Tensor:
     """Stable argsort by word list (most significant first); padding rows
-    (index >= num_rows) sort last.  Returns the int64 permutation."""
+    (index >= num_rows) sort last.  Returns the int64 permutation.  With
+    no padding (num_rows == capacity) no pad-rank word is sorted."""
+    if words and num_rows >= capacity:
+        return lexsort_indices_live(words, None, bits)
     dev = words[0].device if words else None
     live = torch.arange(capacity, device=dev) < num_rows
     return lexsort_indices_live(words, live, bits)
@@ -137,14 +153,29 @@ def sort_form(capacity: int, n_words: int, device_type: str) -> str:
     return "multipass"
 
 
-def lexsort_indices_live(words: List[torch.Tensor], live: torch.Tensor,
+def lexsort_indices_live(words: List[torch.Tensor],
+                         live: Optional[torch.Tensor],
                          bits: Optional[List[int]] = None) -> torch.Tensor:
     """Stable argsort by word list from an explicit live mask (non-live
-    rows sort last).  The strategy is the JAX package's: the pack-sort of
-    ops/radix_sort.py, or stable argsorts composed (multipass); both give
-    the same permutation."""
-    if sort_form(int(live.shape[0]), len(words), live.device.type) == \
-            "radix":
+    rows sort last; None: every row is live).  The strategy is the JAX
+    package's: the pack-sort of ops/radix_sort.py, or stable argsorts
+    composed (multipass); both give the same permutation."""
+    ref = words[0] if live is None else live
+    if sort_form(int(ref.shape[0]), len(words), ref.device.type) == "radix":
         return radix_sort_indices(words, bits, live)
-    pad_rank = (~live).to(torch.int64)
-    return _multipass_lexsort(list(reversed([pad_rank] + list(words))))
+    # a word of at most 8 claimed bits (a null or pad rank) sorts as
+    # uint8: a radix sort of one byte in place of eight
+    bits = bits if bits is not None else [64] * len(words)
+    keys = [w.to(torch.uint8) if b <= 8 else w for w, b in zip(words, bits)]
+    lead = [] if live is None else [(~live).to(torch.uint8)]
+    return _multipass_lexsort(list(reversed(lead + keys)))
+
+
+def keys_equal_prev(words: List[torch.Tensor]) -> torch.Tensor:
+    """bool[rows]: row i's words all equal row i-1's (row 0: False).  The
+    group boundaries of sorted key words."""
+    same: Optional[torch.Tensor] = None
+    for w in words:
+        e = w[1:] == w[:-1]
+        same = e if same is None else same & e
+    return torch.cat([same.new_zeros(1), same])

@@ -11,10 +11,9 @@ the sources in this checkout.  Phases, each fatal on failure:
    started together) and print the build time;
 2. hold the hash-pid kernel bit-exact against its plain PyTorch version
    on the card, on full-range int64 keys with 10% nulls (n in 1, 3, 127,
-   1025, 8192, 499499, 2^24+3: its vector path and its tail; n_parts in
-   1, 2, 4, 7, 200, which covers every exchange of phases 3-12), on views
-   that start off a 16-byte boundary (its scalar path) and on all-null
-   keys;
+   1025, 2^24+3: its vector path and its tail; n_parts in 1, 2, 4, 7,
+   200), on views that start off a 16-byte boundary (its scalar path) and
+   on all-null keys (the shapes the paths give it are phase 15's);
 3. run the TPC-DS shuffled group-by stage pair at SF 10 size through the
    task entry point `execute_task_bytes` on the card: 8 map tasks
    (FFIReader -> Projection -> partial Agg -> RssShuffleWriter, hash on
@@ -29,11 +28,11 @@ the sources in this checkout.  Phases, each fatal on failure:
    the top kernels and host ops;
 6. hold the radix-histogram kernel bit-exact against its plain version
    on the card: n in {128, 256, 512, 1024, 128 x 131, 8192, 144000,
-   524288, 2^20, 2^24} x b_bits in {0, 1, 2, 6, 8} (clusters of 1, 2, 4
-   and 8 blocks), all-zero and all-same-digit words, a view off a 16-byte
-   boundary (must raise ValueError), and the writer's partition sizes at
-   n_parts 1, 2, 4, 7 and 200 on row counts that are not multiples of
-   128 (713000 is q01 stage 1's partial groups per task);
+   2^24} x b_bits in {0, 1, 2, 6, 8} (clusters of 1, 2, 4 and 8 blocks),
+   all-zero and all-same-digit words, a view off a 16-byte boundary (must
+   raise ValueError), and the writer's partition sizes at n_parts 1, 2,
+   4, 7 and 200 on row counts that are not multiples of 128 (the shapes
+   the paths give it are phase 15's);
 7. run the global-sort stage pair on the same rows through
    `execute_task_bytes`: 8 map tasks (FFIReader -> Projection ->
    RssShuffleWriter, range partitioning into 200 partitions by bounds
@@ -55,8 +54,9 @@ the sources in this checkout.  Phases, each fatal on failure:
     RssShuffleWriter, single partition) over the store_sales rows with
     ss_sold_date_sk beside them, and 1 reduce task (IpcReader -> final
     count -> Limit 100); check the count against numpy exactly and that
-    every map-side batch went through the radix-histogram kernel (b = 0)
-    and none through hash-pid; profile one map task;
+    every map-side batch went through the radix-histogram kernel (b = 1,
+    the single writer's ceil_log2(1)) and none through hash-pid; profile
+    one map task;
 11. run q88c whole the same way: 8 map tasks (FFIReader -> Projection of
     three CASE band flags -> partial sums -> single-partition writer) and
     1 reduce task (final sums); check the three band counts exactly;
@@ -70,7 +70,31 @@ the sources in this checkout.  Phases, each fatal on failure:
     store included, against numpy to relative 1e-9, the histogram kernel
     on every writer's batch (b = 2, then b = 1) and hash-pid on every
     batch of the single-key hash(2) writer; profile one stage-1 map task;
-    print the seconds phases 10-12 took.
+    print the seconds phases 10-12 took;
+13. run q17m above its sort-merge join as the converter lowers it, fed
+    the join's 2,875,432 output rows (one per store_returns row of phase
+    12, the sale it was sampled from): 4 map tasks (partial Min, Max,
+    Average, Count by ss_store_sk -> hash(4)), 4 tasks (final -> Sort
+    fetch 100 -> single partition), 1 task (Sort fetch 100 ->
+    Projection); check the 100 rows against numpy and hash-pid and the
+    histogram on every hash(4) batch, the histogram alone on the single
+    writer's; profile one map task; then a group-by of 2^20 rows by a
+    float64 key holding -0.0, 0.0, +-inf and NaNs of both signs and
+    several payloads (Count, Min, Max, first_ignores_null of a float64
+    value) through hash(4), checked against numpy under Spark's
+    normalization; First and first_ignores_null under both sort forms;
+    sorted_segment_min / max on the card against the CPU for every type;
+14. run q39v's month_stats above its broadcast join for January and
+    February 2000, fed the join's rows (4 weekly snapshots of 510,000
+    (item, warehouse) pairs a month): 4 map tasks (partial Average and
+    StddevSamp of cast(qty as double) by (warehouse, item) -> hash(4) on
+    both keys), 4 tasks (final -> rename -> Filter sdev / mean > 0.4 ->
+    hash(4)); check the kept groups, their means and sdevs against
+    numpy, the histogram on every writer batch and no hash-pid (two
+    keys); profile one map task; print the seconds phases 13-14 took;
+15. hold each kernel bit-exact against its plain version at every
+    (rows, n_parts) the writers of phases 3-14 gave it, as their metrics
+    report them.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -78,6 +102,7 @@ as the last line, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import subprocess
@@ -160,7 +185,7 @@ def check_kernel(K, dev, rng) -> int:
         if err:
             raise AssertionError(f"hash-pid kernel != plain at {what} "
                                  f"n_parts={n_parts}: max err {err}")
-    for n in (1, 3, 127, 1025, 8192, 499_499, 2**24 + 3):
+    for n in (1, 3, 127, 1025, 2**24 + 3):
         keys, valid = random_keys(rng, n, dev)
         for n_parts in (1, 2, 4, 7, 200):
             check(keys, valid, n_parts, f"n={n}")
@@ -177,8 +202,8 @@ def check_kernel(K, dev, rng) -> int:
         if not bool((got == 42 % n_parts).all()):
             raise AssertionError(f"all-null batch: pids != 42 % {n_parts}")
     print(f"phase 2: hash-pid kernel bit-exact with its plain version "
-          f"(n in 1, 3, 127, 1025, 8192, 499499, 2^24+3 x n_parts 1, 2, 4, "
-          f"7, 200; keys[1:] and valid[1:] views; all-null)")
+          f"(n in 1, 3, 127, 1025, 2^24+3 x n_parts 1, 2, 4, 7, 200; "
+          f"keys[1:] and valid[1:] views; all-null)")
     return worst
 
 
@@ -194,14 +219,75 @@ def make_store_sales(rows: int, seed: int):
     return [sk, qty, price], valid
 
 
+# ---------------------------------------------------------------------------
+# plans, exchanges and launch checks shared by every path
+# ---------------------------------------------------------------------------
+
+def _writer(child, mode: str, n_parts: int, exprs=(), **partitioning):
+    from auron_tpu_torch.ir import plan as P
+    return P.RssShuffleWriter(
+        child=child, partitioning=P.Partitioning(
+            mode=mode, num_partitions=n_parts, expressions=tuple(exprs),
+            **partitioning),
+        rss_resource_id="shuffle_writer")
+
+
+def _schema(*fields):
+    """A Schema of (name, "i32" | "i64" | "f64"[, nullable]) fields."""
+    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    types = {"i32": DataType.int32(), "i64": DataType.int64(),
+             "f64": DataType.float64()}
+    return Schema.of(*(Field(n, types[t], nullable=nullable)
+                       for n, t, nullable in
+                       ((f + (True,))[:3] for f in fields)))
+
+
+def _stage_launches(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def check_stage(what, launches, results, n_parts: int, hash_pid: bool,
+                scan_batch: int = 0):
+    """The histogram on every writer batch of a stage, hash-pid on each
+    too when the exchange hashes one int64 key, and on none otherwise.
+    Returns the batches and the (kernel, rows, n_parts) of each launch,
+    from the writers' metrics: a task that wrote one batch gives its
+    rows; several batches are taken only from a writer fed straight by
+    the scan (`scan_batch`, the scan's batch rows): whole scan batches
+    and one remainder."""
+    pushed = sum(r.metrics.get("shuffle_write_batches", 0) for r in results)
+    by_hist = sum(r.metrics.get("sizes_by_hist", 0) for r in results)
+    want_pid = pushed if hash_pid else 0
+    if not pushed or launches["radix_bucket_hist"] != pushed or \
+            by_hist != pushed or \
+            launches["hash_partition_ids_i64"] != want_pid:
+        raise AssertionError(f"{what}: {launches} for {pushed} map-side "
+                             f"batches (want the histogram on each, "
+                             f"hash-pid on {want_pid})")
+    rows = []
+    for r in results:
+        k = r.metrics.get("shuffle_write_batches", 0)
+        n = r.metrics.get("shuffle_write_rows", 0)
+        tail = n - (k - 1) * scan_batch
+        if k > 1 and not 0 < tail <= scan_batch:
+            raise AssertionError(f"{what}: a task wrote {k} batches of {n} "
+                                 f"rows in all, not scan batches of "
+                                 f"{scan_batch}")
+        rows += [scan_batch] * (k - 1) + [tail] if k else []
+    kernels = ("hash_pid", "hist") if hash_pid else ("hist",)
+    return pushed, [(kern, n, n_parts) for n in rows for kern in kernels]
+
+
+STORE_SALES = (("ss_customer_sk", "i64"), ("ss_quantity", "i32"),
+               ("ss_sales_price", "f64"))
+
+
 def stage_plans():
     from auron_tpu_torch.ir import expr as E
     from auron_tpu_torch.ir import plan as P
-    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    from auron_tpu_torch.ir.schema import DataType
     f64, i64 = DataType.float64(), DataType.int64()
-    src_schema = Schema.of(Field("ss_customer_sk", i64),
-                           Field("ss_quantity", DataType.int32()),
-                           Field("ss_sales_price", f64))
+    src_schema = _schema(*STORE_SALES)
     aggs = (E.AggExpr(fn="sum", children=(E.col("sales"),), return_type=f64),
             E.AggExpr(fn="count", children=(E.col("sales"),),
                       return_type=i64))
@@ -214,16 +300,11 @@ def stage_plans():
                                         dtype=f64),
                             op="*", right=E.col("ss_sales_price"))),
         names=("ss_customer_sk", "sales"))
-    map_plan = P.RssShuffleWriter(
-        child=P.Agg(child=proj, exec_mode="partial", grouping=key,
-                    grouping_names=("ss_customer_sk",), aggs=aggs,
-                    agg_names=names),
-        partitioning=P.Partitioning(mode="hash", num_partitions=N_REDUCE,
-                                    expressions=key),
-        rss_resource_id="shuffle_writer")
-    state_schema = Schema.of(Field("ss_customer_sk", i64),
-                             Field("sum_sales#sum", f64),
-                             Field("cnt_sales#count", i64, nullable=False))
+    map_plan = _writer(P.Agg(child=proj, exec_mode="partial", grouping=key,
+                             grouping_names=("ss_customer_sk",), aggs=aggs,
+                             agg_names=names), "hash", N_REDUCE, key)
+    state_schema = _schema(("ss_customer_sk", "i64"), ("sum_sales#sum", "f64"),
+                           ("cnt_sales#count", "i64", False))
     reduce_plan = P.Agg(
         child=P.IpcReader(schema=state_schema, resource_id="shuffle_read"),
         exec_mode="final", grouping=key, grouping_names=("ss_customer_sk",),
@@ -488,8 +569,7 @@ def check_hist_kernel(K, dev, rng) -> int:
                 int(got.sum()) != words.shape[0]:
             raise AssertionError(f"radix-hist kernel != plain at {what} "
                                  f"b_bits={b}: max err {err}")
-    sizes = (128, 256, 512, 1024, 128 * 131, 8192, 144_000, 524_288,
-             1 << 20, 1 << 24)
+    sizes = (128, 256, 512, 1024, 128 * 131, 8192, 144_000, 1 << 24)
     clusters = {K.hist_launch_shape(n)[1] for n in sizes}
     if clusters != {1, 2, 4, 8}:
         raise AssertionError(f"the sizes cover clusters {clusters}")
@@ -516,7 +596,7 @@ def check_hist_kernel(K, dev, rng) -> int:
         raise AssertionError("a view off a 16-byte boundary did not raise")
     if K.LAUNCHES["radix_bucket_hist"] != before:
         raise AssertionError("the refused view was counted as a launch")
-    for n in (8192, 1000, 8191, 499_499, 713_000):
+    for n in (1000, 8191):
         for n_parts in (1, 2, 4, 7, 200):
             pids = torch.from_numpy(rng.integers(0, n_parts, n)
                                     .astype(np.int32)).to(dev)
@@ -528,12 +608,10 @@ def check_hist_kernel(K, dev, rng) -> int:
                 raise AssertionError(f"writer sizes != bincount at n={n} "
                                      f"n_parts={n_parts}")
     print("phase 6: radix-hist kernel bit-exact with its plain version "
-          "(n in 128, 256, 512, 1024, 16768, 8192, 144000, 524288, 2^20, "
-          "2^24 x "
+          "(n in 128, 256, 512, 1024, 16768, 8192, 144000, 2^24 x "
           "b_bits 0, 1, 2, 6, 8: clusters of 1, 2, 4, 8; all-zero and "
           "one-digit words at 8192, 524288); words[1:] raised ValueError; "
-          "writer sizes exact at n in 8192, 1000, 8191, 499499, 713000 x "
-          "n_parts 1, 2, 4, 7, 200")
+          "writer sizes exact at n in 1000, 8191 x n_parts 1, 2, 4, 7, 200")
     return worst
 
 
@@ -634,23 +712,16 @@ def sort_stage_plans(bounds):
     """(map plan, reduce plan) of the global sort, in the port's IR."""
     from auron_tpu_torch.ir import expr as E
     from auron_tpu_torch.ir import plan as P
-    from auron_tpu_torch.ir.schema import DataType, Field, Schema
-    schema = Schema.of(Field("ss_customer_sk", DataType.int64()),
-                       Field("ss_quantity", DataType.int32()),
-                       Field("ss_sales_price", DataType.float64()))
+    schema = _schema(*STORE_SALES)
     orders = (E.SortExpr(child=E.col("ss_sales_price"), asc=False,
                          nulls_first=False),
               E.SortExpr(child=E.col("ss_customer_sk"), asc=True,
                          nulls_first=True))
     names = tuple(f.name for f in schema)
-    map_plan = P.RssShuffleWriter(
-        child=P.Projection(
-            child=P.FFIReader(schema=schema, resource_id="store_sales"),
-            exprs=tuple(E.col(n) for n in names), names=names),
-        partitioning=P.Partitioning(mode="range", num_partitions=N_REDUCE,
-                                    sort_orders=orders,
-                                    range_bounds=bounds),
-        rss_resource_id="shuffle_writer")
+    map_plan = _writer(P.Projection(
+        child=P.FFIReader(schema=schema, resource_id="store_sales"),
+        exprs=tuple(E.col(n) for n in names), names=names),
+        "range", N_REDUCE, sort_orders=orders, range_bounds=bounds)
     reduce_plan = P.Sort(child=P.IpcReader(schema=schema,
                                            resource_id="shuffle_read"),
                          sort_exprs=orders)
@@ -799,7 +870,8 @@ def make_store_returns(cols, valid, seed: int):
     rows' scale (2,875,432 rows at SF 10): returned sales sampled without
     replacement, the sale's customer, a store uniform over the SF-10
     stores (the sales rows carry none), the amount round(quantity x
-    price x U(0.1, 1.0), 2), each column with NULL_FRACTION nulls."""
+    price x U(0.1, 1.0), 2), each column with NULL_FRACTION nulls.
+    Returns the columns, their validities and the sampled sales' rows."""
     rows = len(cols[0])
     n = max(1, rows * SF10_STORE_RETURNS_ROWS // SF10_STORE_SALES_ROWS)
     rng = np.random.default_rng([seed, 1])
@@ -809,7 +881,7 @@ def make_store_returns(cols, valid, seed: int):
     amt = np.round(cols[1][ridx].astype(np.float64) * cols[2][ridx] *
                    rng.uniform(0.1, 1.0, n), 2)
     return [cust, store, amt], [rng.random(n) >= NULL_FRACTION
-                                for _ in range(3)]
+                                for _ in range(3)], ridx
 
 
 def store_sales_plans(name: str):
@@ -818,7 +890,7 @@ def store_sales_plans(name: str):
     holds them to its JSON), the parquet scan an FFIReader."""
     from auron_tpu_torch.ir import expr as E
     from auron_tpu_torch.ir import plan as P
-    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    from auron_tpu_torch.ir.schema import DataType
     i32, i64, f64 = DataType.int32(), DataType.int64(), DataType.float64()
     qty, price = E.col("ss_quantity"), E.col("ss_sales_price")
 
@@ -826,28 +898,24 @@ def store_sales_plans(name: str):
         return E.Literal(value=v, dtype=t)
 
     def writer(child):
-        return P.RssShuffleWriter(
-            child=child, partitioning=P.Partitioning(mode="single",
-                                                     num_partitions=1),
-            rss_resource_id="shuffle_writer")
+        return _writer(child, "single", 1)
 
     def agg(child, mode, aggs, names):
         return P.Agg(child=child, exec_mode=mode, aggs=aggs, agg_names=names)
     if name == "q96":
-        scan = P.FFIReader(schema=Schema.of(
-            Field("ss_sold_date_sk", i64), Field("ss_quantity", i32),
-            Field("ss_sales_price", f64)), resource_id="store_sales")
+        scan = P.FFIReader(schema=_schema(
+            ("ss_sold_date_sk", "i64"), *STORE_SALES[1:]),
+            resource_id="store_sales")
         aggs = (E.AggExpr(fn="count", children=(qty,), return_type=i64),)
         filt = P.Filter(child=scan, predicates=(
             E.BinaryExpr(left=qty, op=">=", right=lit(20, i32)),
             E.BinaryExpr(left=price, op="<", right=lit(120.0, f64))))
-        states = Schema.of(Field("cnt#count", i64, nullable=False))
+        states = _schema(("cnt#count", "i64", False))
         return (writer(agg(filt, "partial", aggs, ("cnt",))),
                 P.Limit(child=agg(P.IpcReader(schema=states,
                                               resource_id="shuffle_read"),
                                   "final", aggs, ("cnt",)), limit=100))
-    scan = P.FFIReader(schema=Schema.of(Field("ss_quantity", i32),
-                                        Field("ss_sales_price", f64)),
+    scan = P.FFIReader(schema=_schema(*STORE_SALES[1:]),
                        resource_id="store_sales")
 
     def flag(cond):
@@ -863,7 +931,7 @@ def store_sales_plans(name: str):
     aggs = tuple(E.AggExpr(fn="sum", children=(E.col(b),), return_type=i64)
                  for b in ("b1", "b2", "b3"))
     proj = P.Projection(child=scan, exprs=bands, names=("b1", "b2", "b3"))
-    states = Schema.of(*(Field(f"{n}#sum", i64) for n in names))
+    states = _schema(*((f"{n}#sum", "i64") for n in names))
     return (writer(agg(proj, "partial", aggs, names)),
             agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
                 "final", aggs, names))
@@ -875,42 +943,34 @@ def q01_plans():
     stage-3 plan)."""
     from auron_tpu_torch.ir import expr as E
     from auron_tpu_torch.ir import plan as P
-    from auron_tpu_torch.ir.schema import DataType, Field, Schema
-    i64, f64 = DataType.int64(), DataType.float64()
+    from auron_tpu_torch.ir.schema import DataType
+    f64 = DataType.float64()
     cust, store = E.col("sr_customer_sk"), E.col("sr_store_sk")
     keys, key_names = (cust, store), ("sr_customer_sk", "sr_store_sk")
     ctr = (E.AggExpr(fn="sum", children=(E.col("sr_return_amt"),),
                      return_type=f64),)
     avg = (E.AggExpr(fn="avg", children=(E.col("ctr_total_return"),),
                      return_type=f64),)
-    scan = P.FFIReader(schema=Schema.of(
-        Field("sr_customer_sk", i64), Field("sr_store_sk", i64),
-        Field("sr_return_amt", f64)), resource_id="store_returns")
-    stage1 = P.RssShuffleWriter(
-        child=P.Agg(child=scan, exec_mode="partial", grouping=keys,
-                    grouping_names=key_names, aggs=ctr,
-                    agg_names=("ctr_total_return",)),
-        partitioning=P.Partitioning(mode="hash", num_partitions=4,
-                                    expressions=keys),
-        rss_resource_id="shuffle_writer")
-    ctr_states = Schema.of(Field("sr_customer_sk", i64),
-                           Field("sr_store_sk", i64),
-                           Field("ctr_total_return#sum", f64))
+    scan = P.FFIReader(schema=_schema(
+        ("sr_customer_sk", "i64"), ("sr_store_sk", "i64"),
+        ("sr_return_amt", "f64")), resource_id="store_returns")
+    stage1 = _writer(P.Agg(child=scan, exec_mode="partial", grouping=keys,
+                           grouping_names=key_names, aggs=ctr,
+                           agg_names=("ctr_total_return",)),
+                     "hash", 4, keys)
+    ctr_states = _schema(("sr_customer_sk", "i64"), ("sr_store_sk", "i64"),
+                         ("ctr_total_return#sum", "f64"))
     final_ctr = P.Agg(child=P.IpcReader(schema=ctr_states,
                                         resource_id="shuffle_read"),
                       exec_mode="final", grouping=keys,
                       grouping_names=key_names, aggs=ctr,
                       agg_names=("ctr_total_return",))
-    stage2 = P.RssShuffleWriter(
-        child=P.Agg(child=final_ctr, exec_mode="partial", grouping=(store,),
-                    grouping_names=("sr_store_sk",), aggs=avg,
-                    agg_names=("avg_return",)),
-        partitioning=P.Partitioning(mode="hash", num_partitions=2,
-                                    expressions=(store,)),
-        rss_resource_id="shuffle_writer")
-    avg_states = Schema.of(Field("sr_store_sk", i64),
-                           Field("avg_return#sum", f64),
-                           Field("avg_return#count", i64, nullable=False))
+    stage2 = _writer(P.Agg(child=final_ctr, exec_mode="partial",
+                           grouping=(store,), grouping_names=("sr_store_sk",),
+                           aggs=avg, agg_names=("avg_return",)),
+                     "hash", 2, (store,))
+    avg_states = _schema(("sr_store_sk", "i64"), ("avg_return#sum", "f64"),
+                         ("avg_return#count", "i64", False))
     stage3 = P.Projection(
         child=P.Agg(child=P.IpcReader(schema=avg_states,
                                       resource_id="shuffle_read"),
@@ -953,16 +1013,10 @@ def run_shuffle_stage(plan, svc, shuffle_id, n_tasks, task_fn):
                            for p in range(n_parts)]
 
 
-def writer_launches(results):
-    """(map-side batches, batches whose sizes came from the histogram)."""
-    return (sum(r.metrics.get("shuffle_write_batches", 0) for r in results),
-            sum(r.metrics.get("sizes_by_hist", 0) for r in results))
-
-
 def run_global_query(name: str, cols, valid, dev, K, card: str):
     """Phases 10 and 11: q96 or q88c, 8 map tasks into one partition and
-    one reduce task.  Returns {column: (data, validity)} and the path's
-    launches."""
+    one reduce task.  Returns {column: (data, validity)}, the path's
+    launches and its kernel shapes."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     map_plan, reduce_plan = store_sales_plans(name)
     svc = InProcessShuffleService()
@@ -975,22 +1029,14 @@ def run_global_query(name: str, cols, valid, dev, K, card: str):
     torch.cuda.synchronize()
     reduce_s = time.perf_counter() - t
     launches = dict(K.LAUNCHES)
-    pushed, by_hist = writer_launches(maps)
-    if not pushed or launches["radix_bucket_hist"] != pushed or \
-            by_hist != pushed:
-        raise AssertionError(f"{name}: radix-hist kernel launched "
-                             f"{launches['radix_bucket_hist']} times for "
-                             f"{pushed} map-side batches")
-    if launches["hash_partition_ids_i64"]:
-        raise AssertionError(f"{name}: the single exchange launched the "
-                             f"hash kernel")
+    pushed, shapes = check_stage(name, launches, maps, 1, hash_pid=False)
     phase = {"q96": 10, "q88c": 11}[name]
     print(f"phase {phase}: {name} map stage {map_s:.3f} s "
           f"({len(cols[0]) / map_s:.0f} rows/s), reduce stage "
           f"{reduce_s:.4f} s, {pushed} map-side batches = "
-          f"{launches['radix_bucket_hist']} radix-hist launches (b = 0), "
+          f"{launches['radix_bucket_hist']} radix-hist launches (b = 1), "
           f"0 hash-pid launches | {card}")
-    return out, launches
+    return out, launches, shapes
 
 
 def check_q96(out, cols, valid) -> int:
@@ -1017,7 +1063,8 @@ def check_q88c(out, cols, valid):
 
 def run_q01_stages(rcols, rvalid, dev, K, card: str):
     """Phase 12: the three aggregate stages of q01's threshold subtree.
-    Returns the stage-3 outputs and the path's launches."""
+    Returns the stage-3 outputs, the path's launches and its kernel
+    shapes."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     s1, s2, s3 = q01_plans()
     svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
@@ -1038,18 +1085,12 @@ def run_q01_stages(rcols, rvalid, dev, K, card: str):
     torch.cuda.synchronize()
     t3 = time.perf_counter() - t
     launches = dict(K.LAUNCHES)
-    pushed1, hist1 = writer_launches(maps1)
-    pushed2, hist2 = writer_launches(maps2)
-    if not pushed1 or after1["radix_bucket_hist"] != pushed1 or \
-            hist1 != pushed1 or after1["hash_partition_ids_i64"]:
-        raise AssertionError(f"q01 stage 1: {after1} for {pushed1} "
-                             f"map-side batches (want the histogram on "
-                             f"each, no hash-pid: two keys)")
-    stage2 = {k: after2[k] - after1[k] for k in after2}
-    if not pushed2 or stage2["radix_bucket_hist"] != pushed2 or \
-            hist2 != pushed2 or stage2["hash_partition_ids_i64"] != pushed2:
-        raise AssertionError(f"q01 stage 2: {stage2} for {pushed2} "
-                             f"map-side batches (want both kernels on each)")
+    # stage 1 hashes two keys, so no hash-pid there
+    pushed1, shapes1 = check_stage("q01 stage 1", after1, maps1, 4,
+                                   hash_pid=False)
+    stage2 = _stage_launches(after1, after2)
+    pushed2, shapes2 = check_stage("q01 stage 2", stage2, maps2, 2,
+                                   hash_pid=True)
     if launches != after2:
         raise AssertionError("q01 stage 3 launched a kernel")
     print(f"phase 12: q01 stage 1 (scan -> partial sum -> hash(4)) "
@@ -1060,7 +1101,7 @@ def run_q01_stages(rcols, rvalid, dev, K, card: str):
           f"hash-pid; stage 2: {pushed2} = {stage2['radix_bucket_hist']} "
           f"radix-hist (b = 1) = {stage2['hash_partition_ids_i64']} hash-pid "
           f"launches | {card}")
-    return outs, launches
+    return outs, launches, shapes1 + shapes2
 
 
 def check_q01(outs, rcols, rvalid) -> int:
@@ -1103,6 +1144,611 @@ def check_q01(outs, rcols, rvalid) -> int:
     return len(exp)
 
 
+# ---------------------------------------------------------------------------
+# q17m's and q39v's aggregations above their joins, and float keys
+# (phases 13 and 14)
+# ---------------------------------------------------------------------------
+
+SF10_ITEMS = 102_000                 # TPC-DS item at scale factor 10
+SF10_WAREHOUSES = 10                 # TPC-DS warehouse at scale factor 10
+# SF-10 inventory: 133,110,000 rows = 261 weekly snapshots x 510,000
+# (item, warehouse) pairs, half the items in each snapshot
+INV_ITEMS = SF10_ITEMS // 2
+N_AGG_PARTS = 4                      # the converter's q17m / q39v exchanges
+Q39V_RATIO = 0.4                     # the corpus's sdev / mean threshold
+FLOAT_KEY_ROWS = 1 << 20
+FLOAT_KEY_VALUES = 1_000
+# float64 bit patterns: -0.0, 0.0, +inf, -inf, the quiet NaN, its
+# negative, a quiet NaN with a payload, a signalling NaN and a negative one
+SPECIAL_F64_BITS = (0x8000000000000000, 0, 0x7FF0000000000000,
+                    0xFFF0000000000000, 0x7FF8000000000000,
+                    0xFFF8000000000000, 0x7FF8000000000001,
+                    0x7FF0000000000123, 0xFFF4000000000000)
+CANONICAL_NAN_BITS = 0x7FF8000000000000
+
+
+Q17M_JOIN = (("ss_ticket_number", "i64"), ("ss_item_sk", "i64"),
+             ("ss_store_sk", "i64"), ("ss_quantity", "i32"),
+             ("sr_ticket_number", "i64"), ("sr_item_sk", "i64"),
+             ("sr_return_amt", "f64"))
+Q39V_JOIN = (("inv_date_sk", "i64"), ("inv_item_sk", "i64"),
+             ("inv_warehouse_sk", "i64"), ("inv_quantity_on_hand", "i32"),
+             ("d_date_sk", "i64"), ("d_moy", "i32"), ("d_year", "i32"))
+
+
+def q17m_plans():
+    """q17m above its sort-merge join in the port's IR, as the converter
+    lowers it (tests/test_torch_corpus_aggs.py holds them to its JSON),
+    the join an FFIReader of its output rows: (stage 1: partial Min, Max,
+    Average, Count by ss_store_sk -> hash(4); stage 2: final -> Sort
+    fetch 100 -> single; stage 3: Sort fetch 100 -> Projection)."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    i32, i64, f64 = DataType.int32(), DataType.int64(), DataType.float64()
+    store = E.col("ss_store_sk")
+    qty = E.col("ss_quantity")
+    aggs = (E.AggExpr(fn="min", children=(qty,), return_type=i32),
+            E.AggExpr(fn="max", children=(qty,), return_type=i32),
+            E.AggExpr(fn="avg", children=(E.col("sr_return_amt"),),
+                      return_type=f64),
+            E.AggExpr(fn="count", children=(E.col("ss_ticket_number"),),
+                      return_type=i64))
+    names = ("min_q", "max_q", "avg_r", "n")
+
+    def agg(child, mode):
+        return P.Agg(child=child, exec_mode=mode, grouping=(store,),
+                     grouping_names=("ss_store_sk",), aggs=aggs,
+                     agg_names=names)
+    join = P.FFIReader(schema=_schema(*Q17M_JOIN), resource_id="join")
+    stage1 = _writer(agg(join, "partial"), "hash", N_AGG_PARTS, (store,))
+    states = _schema(("ss_store_sk", "i64"), ("min_q#min", "i32"),
+                     ("max_q#max", "i32"), ("avg_r#sum", "f64"),
+                     ("avg_r#count", "i64", False), ("n#count", "i64", False))
+    order = (E.SortExpr(child=store, asc=True, nulls_first=True),)
+    stage2 = _writer(P.Sort(
+        child=agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
+                  "final"), sort_exprs=order, fetch_limit=100), "single", 1)
+    out = _schema(("ss_store_sk", "i64"), ("min_q", "i32"),
+                  ("max_q", "i32"), ("avg_r", "f64"), ("n", "i64"))
+    stage3 = P.Projection(
+        child=P.Sort(child=P.IpcReader(schema=out,
+                                       resource_id="shuffle_read"),
+                     sort_exprs=order, fetch_limit=100),
+        exprs=tuple(E.col(f.name) for f in out),
+        names=tuple(f.name for f in out))
+    return stage1, stage2, stage3
+
+
+def q39v_plans(moy: int):
+    """q39v's month_stats for month `moy` above its broadcast join, as
+    the converter lowers it: (map: partial Average and StddevSamp of
+    cast(qty as double) by (warehouse, item) -> hash(4); reduce: final
+    -> Projection(rename) -> Filter(sdev / mean > 0.4) -> hash(4), the
+    exchange of the self-join)."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    f64 = DataType.float64()
+    keys = (E.col("inv_warehouse_sk"), E.col("inv_item_sk"))
+    key_names = ("inv_warehouse_sk", "inv_item_sk")
+    qty = E.Cast(child=E.col("inv_quantity_on_hand"), dtype=f64)
+    aggs = (E.AggExpr(fn="avg", children=(qty,), return_type=f64),
+            E.AggExpr(fn="stddev_samp", children=(qty,), return_type=f64))
+
+    def agg(child, mode):
+        return P.Agg(child=child, exec_mode=mode, grouping=keys,
+                     grouping_names=key_names, aggs=aggs,
+                     agg_names=("mean", "sdev"))
+    join = P.FFIReader(schema=_schema(*Q39V_JOIN), resource_id="join")
+    stage1 = _writer(agg(join, "partial"), "hash", N_AGG_PARTS, keys)
+    states = _schema(("inv_warehouse_sk", "i64"), ("inv_item_sk", "i64"),
+                     ("mean#sum", "f64"), ("mean#count", "i64", False),
+                     ("sdev#sum", "f64"), ("sdev#sumsq", "f64"),
+                     ("sdev#count", "i64", False))
+    s = str(moy)
+    renamed = P.Projection(
+        child=agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
+                  "final"),
+        exprs=keys + (E.col("mean"), E.col("sdev")),
+        names=(f"w{s}", f"i{s}", f"mean{s}", f"sdev{s}"))
+    cov = E.BinaryExpr(left=E.col(f"sdev{s}"), op="/",
+                       right=E.col(f"mean{s}"))
+    kept = P.Filter(child=renamed, predicates=(E.BinaryExpr(
+        left=cov, op=">", right=E.Literal(value=Q39V_RATIO, dtype=f64)),))
+    stage2 = _writer(kept, "hash", N_AGG_PARTS,
+                     (E.col(f"w{s}"), E.col(f"i{s}")))
+    return stage1, stage2
+
+
+def make_q17m_join(cols, valid, rcols, rvalid, ridx, seed: int):
+    """The rows of q17m's sort-merge join at SF 10: one per store_returns
+    row of phase 12, each matching the sale it was sampled from on
+    (ticket, item) as `it/datagen.py` builds them.  The ticket is the
+    sale's row number + 1 (never null), the item uniform over the SF-10
+    items from a generator of its own, ss_store_sk and sr_return_amt
+    phase 12's, ss_quantity the sale's; in ticket order, as the join
+    emits them."""
+    rng = np.random.default_rng([seed, 17])
+    n = len(ridx)
+    ticket = ridx.astype(np.int64) + 1
+    item = rng.integers(1, SF10_ITEMS + 1, n, dtype=np.int64)
+    order = np.argsort(ticket, kind="stable")
+    ones = np.ones(n, bool)
+    data = [ticket, item, rcols[1], cols[1][ridx], ticket, item, rcols[2]]
+    val = [ones, ones, rvalid[1], valid[1][ridx], ones, ones, rvalid[2]]
+    return [d[order] for d in data], [v[order] for v in val]
+
+
+def inventory_dates(moy: int) -> np.ndarray:
+    """The weekly inventory snapshots of month `moy` of 2000 on
+    `it/datagen.py`'s grid: d_date_sk 2450815 is 1998-01-01, years of 365
+    days, months of 30 (December the rest), a snapshot every 7th day."""
+    idx = np.arange(0, 5 * 365, 7)
+    doy, year = idx % 365, 1998 + idx // 365
+    month = np.minimum(doy // 30 + 1, 12)
+    return idx[(year == 2000) & (month == moy)] + 2_450_815
+
+
+def make_inventory_month(moy: int, seed: int, items: int = INV_ITEMS):
+    """The rows of q39v's broadcast join for month `moy`: its snapshots,
+    each holding the 510,000 (item, warehouse) pairs of an SF-10 snapshot
+    in the generator's order, inv_quantity_on_hand uniform over 0..999
+    as `it/datagen.py` draws it with NULL_FRACTION nulls, the date
+    columns of the matched date_dim row.  The keys are never null.
+    `items` cuts the 51,000 items of a snapshot for a quick check."""
+    dates = inventory_dates(moy)
+    pairs = items * SF10_WAREHOUSES
+    n = len(dates) * pairs
+    rng = np.random.default_rng([seed, 39, moy])
+    date = np.repeat(dates, pairs)
+    item = np.tile(np.repeat(np.arange(1, items + 1, dtype=np.int64),
+                             SF10_WAREHOUSES), len(dates))
+    wh = np.tile(np.arange(1, SF10_WAREHOUSES + 1, dtype=np.int64),
+                 len(dates) * items)
+    qty = rng.integers(0, 1000, n).astype(np.int32)
+    ones = np.ones(n, bool)
+    return ([date, item, wh, qty, date, np.full(n, moy, np.int32),
+             np.full(n, 2000, np.int32)],
+            [ones, ones, ones, rng.random(n) >= NULL_FRACTION, ones, ones,
+             ones])
+
+
+def run_q17m(jcols, jvalid, dev, K, card: str):
+    """Phase 13: q17m's three stages above the join.  Returns the
+    stage-3 output, the path's launches and the kernel shapes (kernel,
+    rows, n_parts) the writers gave the kernels."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    s1, s2, s3 = q17m_plans()
+    svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
+    K.reset_launches()
+    maps1, t1, blocks1 = run_shuffle_stage(
+        s1, svc1, "q17m_agg", N_AGG_PARTS,
+        lambda m: map_task(m, jcols, jvalid, svc1, dev, s1, "q17m_agg",
+                           "join", N_AGG_PARTS))
+    after1 = dict(K.LAUNCHES)
+    maps2, t2, blocks2 = run_shuffle_stage(
+        s2, svc2, "q17m_top", len(blocks1),
+        lambda p: reduce_task(s2, blocks1, 2, p, dev,
+                              svc2.rss_writer("q17m_top", p)))
+    after2 = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    out = reduce_task(s3, blocks2, 3, 0, dev).to_numpy()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    pushed1, shapes1 = check_stage("q17m stage 1", after1, maps1,
+                                   N_AGG_PARTS, hash_pid=True)
+    pushed2, shapes2 = check_stage("q17m stage 2",
+                                   _stage_launches(after1, after2), maps2, 1,
+                                   hash_pid=False)
+    if launches != after2:
+        raise AssertionError("q17m stage 3 launched a kernel")
+    print(f"phase 13: q17m stage 1 (join rows -> partial min, max, avg, "
+          f"count -> hash(4)) {t1:.3f} s ({len(jcols[0]) / t1:.0f} rows/s), "
+          f"stage 2 (final -> sort fetch 100 -> single) {t2:.4f} s, stage 3 "
+          f"(sort fetch 100 -> project) {t3:.4f} s; stage 1: {pushed1} "
+          f"map-side batches = {after1['radix_bucket_hist']} radix-hist "
+          f"(b = 2) = {after1['hash_partition_ids_i64']} hash-pid launches; "
+          f"stage 2: {pushed2} = "
+          f"{after2['radix_bucket_hist'] - after1['radix_bucket_hist']} "
+          f"radix-hist (b = 1), 0 hash-pid | {card}")
+    return out, launches, shapes1 + shapes2
+
+
+def check_q17m(out, jcols, jvalid) -> int:
+    """100 rows in store order, the null store first: per store the Min
+    and Max of ss_quantity and the Count of tickets exact, the Average of
+    sr_return_amt to relative 1e-9, against numpy.  Returns the stores."""
+    store, qty, amt = jcols[2], jcols[3], jcols[6]
+    sv, qv, av = jvalid[2], jvalid[3], jvalid[6]
+    uk, inv = np.unique(np.where(sv, store, -1), return_inverse=True)
+    g = len(uk)
+    cnt = np.bincount(inv, minlength=g)
+    qmin = np.full(g, np.iinfo(np.int32).max, np.int64)
+    qmax = np.full(g, np.iinfo(np.int32).min, np.int64)
+    np.minimum.at(qmin, inv[qv], qty[qv])
+    np.maximum.at(qmax, inv[qv], qty[qv])
+    has_q = np.bincount(inv, weights=qv, minlength=g) > 0
+    asum = np.bincount(inv, weights=np.where(av, amt, 0.0), minlength=g)
+    acnt = np.bincount(inv, weights=av, minlength=g)
+    top = min(100, g)
+    (k, kv), (mn, mnv), (mx, mxv), (a, avv), (n, nv) = (
+        out[c] for c in ("ss_store_sk", "min_q", "max_q", "avg_r", "n"))
+    if len(k) != top or uk[0] != -1:
+        raise AssertionError(f"q17m: {len(k)} rows, want {top} with the "
+                             f"null store")
+    if not (np.array_equal(np.where(kv, k, -1), uk[:top]) and
+            np.array_equal(mnv, has_q[:top]) and
+            np.array_equal(mxv, has_q[:top]) and nv.all() and
+            np.array_equal(mn[mnv], qmin[:top][has_q[:top]]) and
+            np.array_equal(mx[mxv], qmax[:top][has_q[:top]]) and
+            np.array_equal(n, cnt[:top])):
+        raise AssertionError("q17m: stores, Min, Max or Count differ from "
+                             "numpy")
+    exp = asum[:top] / np.maximum(acnt[:top], 1)
+    if not np.array_equal(avv, acnt[:top] > 0) or \
+            np.any(np.abs(a[avv] - exp[avv]) > 1e-9 * np.abs(exp[avv])):
+        raise AssertionError("q17m: Average differs from numpy")
+    return g
+
+
+def run_q39v_month(moy: int, icols, ivalid, dev, K, card: str):
+    """Phase 14: one month of q39v's month_stats.  Returns the kept rows
+    ({column: (data, validity)}), the path's launches and the kernel
+    shapes."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    m1, m2 = q39v_plans(moy)
+    svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
+    sid1, sid2 = f"q39v_{moy}_agg", f"q39v_{moy}_kept"
+    K.reset_launches()
+    maps1, t1, blocks1 = run_shuffle_stage(
+        m1, svc1, sid1, N_AGG_PARTS,
+        lambda m: map_task(m, icols, ivalid, svc1, dev, m1, sid1, "join",
+                           N_AGG_PARTS))
+    after1 = dict(K.LAUNCHES)
+    maps2, t2, blocks2 = run_shuffle_stage(
+        m2, svc2, sid2, len(blocks1),
+        lambda p: reduce_task(m2, blocks1, 2, p, dev,
+                              svc2.rss_writer(sid2, p)))
+    launches = dict(K.LAUNCHES)
+    pushed1, shapes1 = check_stage(f"q39v month {moy} map", after1, maps1,
+                                   N_AGG_PARTS, hash_pid=False)
+    pushed2, shapes2 = check_stage(f"q39v month {moy} reduce",
+                                   _stage_launches(after1, launches), maps2,
+                                   N_AGG_PARTS, hash_pid=False)
+    kept = {}
+    blocks = [b for part in blocks2 for b in part]
+    names = (f"w{moy}", f"i{moy}", f"mean{moy}", f"sdev{moy}")
+    for i, name in enumerate(names):
+        kept[name] = (
+            np.concatenate([b.columns[i].data[:b.num_rows].cpu().numpy()
+                            for b in blocks]),
+            np.concatenate([b.columns[i].validity[:b.num_rows].cpu().numpy()
+                            for b in blocks]))
+    print(f"phase 14: q39v month {moy} map (join rows -> partial avg, "
+          f"stddev_samp -> hash(4) on two keys) {t1:.3f} s "
+          f"({len(icols[0]) / t1:.0f} rows/s), reduce (final -> rename -> "
+          f"filter -> hash(4)) {t2:.3f} s; map: {pushed1} map-side batches "
+          f"= {after1['radix_bucket_hist']} radix-hist (b = 2), reduce: "
+          f"{pushed2} = {launches['radix_bucket_hist'] - after1['radix_bucket_hist']}"
+          f" radix-hist (b = 2), 0 hash-pid (two keys) | {card}")
+    return kept, launches, shapes1 + shapes2
+
+
+def check_q39v(kept, icols, ivalid, moy: int):
+    """The kept (warehouse, item) groups equal numpy's: mean and
+    std(ddof=1) of each group's quantities to relative 1e-9, a group of
+    one valid row with sdev NaN and kept (NaN > 0.4 in Spark's order; the
+    NaN is the JAX package's and its oracle's, which Spark gives only
+    with spark.sql.legacy.statisticalAggregate: ROADMAP Queue 3 item
+    14), groups of no valid row or a zero mean dropped (a null ratio).
+    Whether a group is kept is decided in exact integer arithmetic:
+    sdev / mean > 0.4 iff 25 n (n sum(q^2) - s^2) > 4 (n - 1) s^2 for
+    s > 0; a group on the tie (equality) may go either way in floating
+    point and is counted, not checked.  Returns (kept, NaN sdevs,
+    ties)."""
+    snaps = len(inventory_dates(moy))
+    q = icols[3].reshape(snaps, -1).astype(np.int64)
+    v = ivalid[3].reshape(snaps, -1)
+    n = v.sum(0)
+    s = np.where(v, q, 0).sum(0)
+    s2 = np.where(v, q * q, 0).sum(0)
+    lhs = 25 * n * (n * s2 - s * s)
+    rhs = 4 * (n - 1) * s * s
+    want = (n > 0) & (s > 0) & ((n == 1) | (lhs > rhs))
+    tie = (n > 1) & (s > 0) & (lhs == rhs)
+    w, wv = kept[f"w{moy}"]
+    it, iv = kept[f"i{moy}"]
+    if not (wv.all() and iv.all()):
+        raise AssertionError("q39v: a null key was kept")
+    pair = (it - 1) * SF10_WAREHOUSES + (w - 1)
+    if len(np.unique(pair)) != len(pair):
+        raise AssertionError("q39v: a group was kept twice")
+    got = np.zeros(len(n), bool)
+    got[pair] = True
+    if np.any((got != want) & ~tie):
+        bad = np.flatnonzero((got != want) & ~tie)
+        raise AssertionError(f"q39v month {moy}: kept set differs from "
+                             f"numpy at {len(bad)} groups, e.g. pair "
+                             f"{bad[0]}")
+    mean = s / np.maximum(n, 1)
+    dev = np.where(v, q - mean, 0.0)
+    sd = np.sqrt((dev * dev).sum(0) / np.maximum(n - 1, 1))
+    (m, mv), (d, dv) = kept[f"mean{moy}"], kept[f"sdev{moy}"]
+    em, ed, en = mean[pair], sd[pair], n[pair]
+    one = en == 1
+    if not (mv.all() and dv.all() and
+            np.all(np.abs(m - em) <= 1e-9 * np.abs(em)) and
+            np.all(np.isnan(d[one])) and
+            np.all(np.abs(d[~one] - ed[~one]) <= 1e-9 * np.abs(ed[~one]))):
+        raise AssertionError(f"q39v month {moy}: a mean or sdev differs "
+                             f"from numpy")
+    return int(got.sum()), int(one.sum()), int(tie.sum())
+
+
+def make_float_keys(seed: int, n: int = FLOAT_KEY_ROWS):
+    """n rows of a float64 key drawn from FLOAT_KEY_VALUES
+    values (the special patterns of SPECIAL_F64_BITS among them) and a
+    float64 value drawn from the special patterns and 50 numbers, each
+    column with NULL_FRACTION nulls."""
+    rng = np.random.default_rng([seed, 64])
+    special = np.array(SPECIAL_F64_BITS, np.uint64).view(np.float64)
+    keys = np.concatenate([special, np.round(rng.normal(
+        size=FLOAT_KEY_VALUES - len(special)) * 1e3, 2)])
+    vals = np.concatenate([special, rng.normal(size=50)])
+    return ([rng.choice(keys, n), rng.choice(vals, n)],
+            [rng.random(n) >= NULL_FRACTION for _ in range(2)])
+
+
+def float_key_plans(mode: str = "two-phase", fns=("count", "min", "max",
+                                                   "first_ignores_null")):
+    """Group by the float64 key k of (k, v): map partial Agg(fns of v) ->
+    hash(4) on k, reduce final Agg; or, with mode "single", one single
+    Agg."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    i64, f64 = DataType.int64(), DataType.float64()
+    aggs = tuple(E.AggExpr(fn=f, children=(E.col("v"),),
+                           return_type=i64 if f == "count" else f64)
+                 for f in fns)
+    names = tuple(f"a{i}" for i in range(len(fns)))
+    key = (E.col("k"),)
+
+    def agg(child, m):
+        return P.Agg(child=child, exec_mode=m, grouping=key,
+                     grouping_names=("k",), aggs=aggs, agg_names=names)
+    src = P.FFIReader(schema=_schema(("k", "f64"), ("v", "f64")),
+                      resource_id="floats")
+    if mode == "single":
+        return agg(src, "single")
+    states = [("k", "f64")]
+    for name, f in zip(names, fns):
+        state = "first" if f == "first_ignores_null" else f
+        states.append((f"{name}#{state}", "i64" if f == "count" else "f64",
+                       f != "count"))
+    reader = P.IpcReader(schema=_schema(*states), resource_id="shuffle_read")
+    return (_writer(agg(src, "partial"), "hash", N_AGG_PARTS, key),
+            agg(reader, "final"))
+
+
+def _spark_key(k, kv):
+    """int64 group ids of float64 keys under Spark's normalization: -0.0
+    as 0.0, every NaN as one, null a group of its own."""
+    kn = np.where(k == 0, 0.0, k)
+    kn = np.where(np.isnan(kn), np.nan, kn).view(np.int64)
+    # 0x7FF8000000000001 is no normalized key's pattern: the null group
+    return np.where(kv, kn, np.int64(CANONICAL_NAN_BITS + 1))
+
+
+def run_float_keys(fcols, fvalid, dev, K, card: str):
+    """Phase 13: the float-key group-by (4 map tasks into hash(4) on the
+    key, 4 reduce tasks).  Returns {column: (data, validity)}, the
+    launches and the kernel shapes."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    mplan, rplan = float_key_plans()
+    svc = InProcessShuffleService()
+    K.reset_launches()
+    maps, t1, blocks = run_shuffle_stage(
+        mplan, svc, "floats", N_AGG_PARTS,
+        lambda m: map_task(m, fcols, fvalid, svc, dev, mplan, "floats",
+                           "floats", N_AGG_PARTS))
+    t = time.perf_counter()
+    outs = [reduce_task(rplan, blocks, 2, p, dev).to_numpy()
+            for p in range(len(blocks))]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    pushed, shapes = check_stage("float keys map", launches, maps,
+                                 N_AGG_PARTS, hash_pid=False)
+    out = {c: tuple(np.concatenate([o[c][i] for o in outs]) for i in (0, 1))
+           for c in outs[0]}
+    print(f"phase 13: float-key group-by of {len(fcols[0])} rows: map "
+          f"{t1:.3f} s, reduce {t2:.4f} s, {pushed} map-side batches = "
+          f"{launches['radix_bucket_hist']} radix-hist (b = 2), 0 hash-pid "
+          f"| {card}")
+    return out, launches, shapes
+
+
+def _spark_extremes(gid, g, x, xv):
+    """Per group: Spark's Min and Max of float64 x (NaN the greatest,
+    -0.0 equal to 0.0) and whether the group has a valid value."""
+    nan = np.isnan(x)
+    num = xv & ~nan
+    mn = np.full(g, np.inf)
+    mx = np.full(g, -np.inf)
+    np.minimum.at(mn, gid[num], x[num])
+    np.maximum.at(mx, gid[num], x[num])
+    has_num = np.bincount(gid, weights=num, minlength=g) > 0
+    has_nan = np.bincount(gid, weights=xv & nan, minlength=g) > 0
+    mn = np.where(has_num, mn, np.nan)
+    mx = np.where(has_nan, np.nan, mx)
+    return mn, mx, has_num | has_nan
+
+
+def check_float_keys(out, fcols, fvalid) -> int:
+    """One group per normalized key (one for +-0.0, one for every NaN,
+    one for null), each key normalized; Count exact, Min and Max as
+    Spark orders floats (and normalized), first_ignores_null the first
+    valid value in input order, bit for bit.  Returns the groups."""
+    k, v = fcols
+    kv, vv = fvalid
+    uk, gid = np.unique(_spark_key(k, kv), return_inverse=True)
+    g = len(uk)
+    (gk, gkv), (cnt, _), (mn, mnv), (mx, mxv), (fst, fv) = (
+        out[c] for c in ("k", "a0", "a1", "a2", "a3"))
+    kb = gk.view(np.int64)
+    if np.any((kb == np.int64(-(1 << 63))) & gkv) or \
+            np.any(np.isnan(gk) & gkv & (kb != CANONICAL_NAN_BITS)):
+        raise AssertionError("float keys: a key came out unnormalized")
+    got_key = _spark_key(gk, gkv)
+    order = np.argsort(got_key)
+    if not np.array_equal(got_key[order], uk):
+        raise AssertionError(f"float keys: {len(gk)} groups, numpy {g}")
+    if (~gkv).sum() != 1 or (gkv & (gk == 0)).sum() != 1 or \
+            (gkv & np.isnan(gk)).sum() != 1:
+        raise AssertionError("float keys: want one null, one zero and one "
+                             "NaN group")
+    emn, emx, has = _spark_extremes(gid, g, v, vv)
+    ecnt = np.bincount(gid, weights=vv, minlength=g).astype(np.int64)
+    firsts = np.zeros(g, np.float64)
+    rows = np.flatnonzero(vv)
+    gids, at = np.unique(gid[rows], return_index=True)
+    firsts[gids] = v[rows[at]]
+
+    def same(a, b):
+        return np.array_equal(np.isnan(a), np.isnan(b)) and \
+            np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)])
+    for got, gv, exp in ((mn, mnv, emn), (mx, mxv, emx)):
+        got, gv = got[order], gv[order]
+        bits = got[gv].view(np.int64)
+        if not (np.array_equal(gv, has) and same(got[gv], exp[has]) and
+                not np.any(bits == np.int64(-(1 << 63))) and
+                np.all(bits[np.isnan(got[gv])] == CANONICAL_NAN_BITS)):
+            raise AssertionError("float keys: Min or Max differs from "
+                                 "Spark's order")
+    if not (np.array_equal(cnt[order], ecnt) and
+            np.array_equal(fv[order], has) and
+            np.array_equal(fst[order][has].view(np.int64),
+                           firsts[has].view(np.int64))):
+        raise AssertionError("float keys: Count or first_ignores_null "
+                             "differs from numpy")
+    return g
+
+
+def check_first_forms(fcols, fvalid, dev, card: str) -> None:
+    """First and first_ignores_null on the card under both sort forms
+    (the pack-sort and composed stable argsorts) equal numpy's first row
+    and first valid row of each group in input order, over 2^18 rows of
+    the float-key data."""
+    from auron_tpu_torch.columnar.batch import bucket_capacity
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.ops import sort_keys as SK
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    n = min(1 << 18, len(fcols[0]))
+    cols, valid = [c[:n] for c in fcols], [x[:n] for x in fvalid]
+    plan = float_key_plans("single", ("first", "first_ignores_null"))
+    uk, gid = np.unique(_spark_key(cols[0], valid[0]), return_inverse=True)
+    _, first_row = np.unique(gid, return_index=True)
+    rows = np.flatnonzero(valid[1])
+    gids, at = np.unique(gid[rows], return_index=True)
+    forms = []
+    for strategy in ("radix", "argsort"):
+        with conf.scoped({"auron.kernel.sort.strategy": strategy}):
+            form = SK.sort_form(bucket_capacity(SCAN_BATCH), 2, dev.type)
+            out = map_task(0, cols, valid, InProcessShuffleService(), dev,
+                           plan, "first", "floats", 1).to_numpy()
+        order = np.argsort(_spark_key(*out["k"]))
+        (f, fv), (fi, fiv) = out["a0"], out["a1"]
+        f, fv, fi, fiv = f[order], fv[order], fi[order], fiv[order]
+        if not (np.array_equal(fv, valid[1][first_row]) and
+                np.array_equal(f[fv].view(np.int64),
+                               cols[1][first_row][fv].view(np.int64))):
+            raise AssertionError(f"first differs from numpy as {form}")
+        want = np.zeros(len(uk), bool)
+        want[gids] = True
+        if not (np.array_equal(fiv, want) and np.array_equal(
+                fi[fiv].view(np.int64), cols[1][rows[at]].view(np.int64))):
+            raise AssertionError(f"first_ignores_null differs from numpy "
+                                 f"as {form}")
+        forms.append(form)
+    print(f"phase 13: first and first_ignores_null equal numpy's under "
+          f"both sort forms ({', '.join(forms)}) over {n} rows | {card}")
+
+
+def check_segments_on_card(dev, rng, card: str) -> None:
+    """sorted_segment_min / max on the card equal the CPU's, bit for bit,
+    for every type Min and Max reduce (every third segment empty; float64
+    with NaNs of both signs, +-0.0 and +-inf)."""
+    from auron_tpu_torch.ops import segments as S
+    n, n_seg = 1 << 20, 3000
+    used = np.arange(n_seg)[np.arange(n_seg) % 3 != 1]
+    ids = torch.from_numpy(np.sort(rng.choice(used, n)))
+    special = np.array(SPECIAL_F64_BITS, np.uint64).view(np.float64)
+    for dt in (np.int8, np.int16, np.int32, np.int64, np.float64, np.bool_):
+        if dt == np.float64:
+            x = np.where(rng.random(n) < 0.01, rng.choice(special, n),
+                         rng.normal(size=n))
+        elif dt == np.bool_:
+            x = rng.random(n) < 0.999
+        else:
+            info = np.iinfo(dt)
+            x = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        xt = torch.from_numpy(x)
+        for f in (S.sorted_segment_min, S.sorted_segment_max):
+            cpu = f(xt, ids, n_seg).numpy()
+            card_out = f(xt.to(dev), ids.to(dev), n_seg).cpu().numpy()
+            if cpu.tobytes() != card_out.tobytes():
+                raise AssertionError(f"{f.__name__} over {np.dtype(dt)}: "
+                                     f"the card differs from the CPU")
+    print(f"phase 13: sorted_segment_min / max on the card equal the CPU's "
+          f"bit for bit (int8, int16, int32, int64, float64 with NaNs and "
+          f"+-0.0, bool; {n} rows, {n_seg} segments) | {card}")
+
+
+def check_path_shapes(K, dev, rng, shapes) -> dict:
+    """Phase 15: each kernel at each (kernel, rows, n_parts) a path gave it, held
+    bit-exact against its plain version on fresh inputs: hash-pid on
+    int64 keys with 10% nulls, the histogram at the writer's padded
+    capacity and the writer's sizes against torch.bincount.  Returns the
+    largest difference (0) of each kernel."""
+    from auron_tpu_torch.columnar.batch import bucket_capacity
+    from auron_tpu_torch.ops.radix_sort import ceil_log2
+    from auron_tpu_torch.ops.shuffle import writer as W
+    worst = {"hash_pid": 0, "hist": 0}
+    done = set()
+    for kernel, n, n_parts in shapes:
+        if (kernel, n, n_parts) in done:
+            continue
+        done.add((kernel, n, n_parts))
+        if kernel == "hash_pid":
+            keys, valid = random_keys(rng, n, dev)
+            err = int((K.hash_partition_ids_i64(keys, valid, n_parts).long()
+                       - K.hash_partition_ids_i64_plain(keys, valid, n_parts)
+                       .long()).abs().max())
+        else:
+            pids = torch.from_numpy(rng.integers(0, n_parts, n).astype(
+                np.int32)).to(dev)
+            sizes = W.sizes_by_hist(pids, n_parts)
+            err = int(np.abs(sizes - torch.bincount(
+                pids, minlength=n_parts).cpu().numpy()).max())
+            # the writer's words: ids in the top ceil_log2(n_parts) bits
+            words = hist_words(rng, bucket_capacity(n), dev, n_parts)
+            b = ceil_log2(n_parts)
+            err = max(err, int((K.radix_bucket_hist(words, b).long() -
+                                K.radix_bucket_hist_plain(words, b).long())
+                               .abs().max()))
+        worst[kernel] = max(worst[kernel], err)
+        if err:
+            raise AssertionError(f"phase 15: {kernel} != plain at n={n} "
+                                 f"n_parts={n_parts}")
+    print(f"phase 15: every kernel shape of phases 3-14 bit-exact with its "
+          f"plain version, {len(done)} (kernel, rows, n_parts): "
+          f"{sorted(done)}")
+    return worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=SF10_STORE_SALES_ROWS)
@@ -1135,18 +1781,10 @@ def main() -> int:
     K.reset_launches()
     outs, map_results, map_s, reduce_s = run_stage_pair(cols, valid, dev)
     launches = dict(K.LAUNCHES)
-    pushed = sum(r.metrics.get("shuffle_write_batches", 0)
-                 for r in map_results)
+    pushed, shapes = check_stage("group-by map stage", launches,
+                                 map_results, N_REDUCE, hash_pid=True)
     written = sum(r.metrics.get("shuffle_write_rows", 0)
                   for r in map_results)
-    if launches["hash_partition_ids_i64"] != pushed or pushed == 0:
-        raise AssertionError(f"hash-pid kernel launched "
-                             f"{launches['hash_partition_ids_i64']} times "
-                             f"for {pushed} map-side batches")
-    if launches["radix_bucket_hist"] != pushed:
-        raise AssertionError(f"radix-hist kernel launched "
-                             f"{launches['radix_bucket_hist']} times for "
-                             f"{pushed} map-side batches")
     groups = check_result(outs, cols, valid, K, dev)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3: map stage {map_s:.3f} s ({args.rows / map_s:.0f} "
@@ -1204,14 +1842,10 @@ def main() -> int:
         run_sort_stage_pair(cols, valid, plans, dev)
     sort_launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    sort_pushed = sum(r.metrics.get("shuffle_write_batches", 0)
-                      for r in sort_maps)
-    if sort_launches["radix_bucket_hist"] != sort_pushed or not sort_pushed:
-        raise AssertionError(f"radix-hist kernel launched "
-                             f"{sort_launches['radix_bucket_hist']} times "
-                             f"for {sort_pushed} map-side batches")
-    if sort_launches["hash_partition_ids_i64"]:
-        raise AssertionError("the range exchange launched the hash kernel")
+    sort_pushed, sort_shapes = check_stage(
+        "global-sort map stage", sort_launches, sort_maps, N_REDUCE,
+        hash_pid=False, scan_batch=SCAN_BATCH)
+    shapes += sort_shapes
     t = time.perf_counter()
     sizes = check_sort_result(sort_outs, cols, valid, bounds)
     check_s = time.perf_counter() - t
@@ -1254,8 +1888,9 @@ def main() -> int:
     q96_valid = [date_valid, valid[1], valid[2]]
     print(f"phase 10: ss_sold_date_sk made in "
           f"{time.perf_counter() - t:.2f} s")
-    out, q96_launches = run_global_query("q96", q96_cols, q96_valid, dev, K,
-                                         card)
+    out, q96_launches, path_shapes = run_global_query(
+        "q96", q96_cols, q96_valid, dev, K, card)
+    shapes += path_shapes
     print(f"phase 10: q96 count {check_q96(out, cols, valid)} equal to "
           f"numpy | {card}")
     q96_map = store_sales_plans("q96")[0]
@@ -1266,8 +1901,9 @@ def main() -> int:
     del q96_cols, q96_valid, date_sk, date_valid
 
     q88_cols, q88_valid = [cols[1], cols[2]], [valid[1], valid[2]]
-    out, q88_launches = run_global_query("q88c", q88_cols, q88_valid, dev,
-                                         K, card)
+    out, q88_launches, path_shapes = run_global_query(
+        "q88c", q88_cols, q88_valid, dev, K, card)
+    shapes += path_shapes
     print(f"phase 11: q88c bands {check_q88c(out, cols, valid)} equal to "
           f"numpy | {card}")
     q88_map = store_sales_plans("q88c")[0]
@@ -1277,11 +1913,13 @@ def main() -> int:
                                   "q88c"), card)
 
     t = time.perf_counter()
-    rcols, rvalid = make_store_returns(cols, valid, args.seed)
+    rcols, rvalid, ridx = make_store_returns(cols, valid, args.seed)
     print(f"phase 12: {len(rcols[0])} store_returns rows made in "
           f"{time.perf_counter() - t:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    outs, q01_launches = run_q01_stages(rcols, rvalid, dev, K, card)
+    outs, q01_launches, path_shapes = run_q01_stages(rcols, rvalid, dev, K,
+                                                     card)
+    shapes += path_shapes
     t = time.perf_counter()
     stores = check_q01(outs, rcols, rvalid)
     print(f"phase 12: q01 thresholds of {stores} stores (the null store "
@@ -1295,6 +1933,69 @@ def main() -> int:
                                   "store_returns", N_RETURN_MAPS), card)
     print(f"phases 10-12: {time.perf_counter() - new_phases:.1f} s | {card}")
 
+    t = new_phases = time.perf_counter()
+    jcols, jvalid = make_q17m_join(cols, valid, rcols, rvalid, ridx,
+                                   args.seed)
+    print(f"phase 13: {len(jcols[0])} q17m join rows made in "
+          f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    out, q17m_launches, path_shapes = run_q17m(jcols, jvalid, dev, K, card)
+    shapes += path_shapes
+    print(f"phase 13: q17m's {len(out['ss_store_sk'][0])} rows (of "
+          f"{check_q17m(out, jcols, jvalid)} stores, the null store first) "
+          f"equal to numpy, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    s1 = q17m_plans()[0]
+    profile_task("phase 13: q17m stage-1 map task 0",
+                 lambda: map_task(0, jcols, jvalid,
+                                  InProcessShuffleService(), dev, s1,
+                                  "q17m_agg", "join", N_AGG_PARTS), card)
+    del jcols, jvalid, rcols, rvalid, ridx
+    fcols, fvalid = make_float_keys(args.seed,
+                                    min(FLOAT_KEY_ROWS, args.rows))
+    out, float_launches, path_shapes = run_float_keys(fcols, fvalid, dev,
+                                                      K, card)
+    shapes += path_shapes
+    print(f"phase 13: {check_float_keys(out, fcols, fvalid)} float-key "
+          f"groups (one for +-0.0, one for every NaN, one null) equal to "
+          f"numpy under Spark's normalization | {card}")
+    check_first_forms(fcols, fvalid, dev, card)
+    check_segments_on_card(dev, rng, card)
+    del fcols, fvalid
+
+    items = max(100, INV_ITEMS * args.rows // SF10_STORE_SALES_ROWS)
+    q39v_launches = {k: 0 for k in K.LAUNCHES}
+    for moy in (1, 2):
+        t = time.perf_counter()
+        icols, ivalid = make_inventory_month(moy, args.seed, items)
+        print(f"phase 14: {len(icols[0])} q39v join rows of month {moy} "
+              f"made in {time.perf_counter() - t:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        kept, launches_m, path_shapes = run_q39v_month(moy, icols, ivalid,
+                                                       dev, K, card)
+        shapes += path_shapes
+        n_kept, n_nan, n_tie = check_q39v(kept, icols, ivalid, moy)
+        print(f"phase 14: q39v month {moy}: {n_kept} of "
+              f"{items * SF10_WAREHOUSES} groups kept, equal to numpy "
+              f"({n_nan} of one valid row kept with sdev NaN, {n_tie} on "
+              f"the 0.4 tie), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+        q39v_launches = {k: q39v_launches[k] + launches_m[k]
+                         for k in q39v_launches}
+        if moy == 1:
+            profile_task("phase 14: q39v month-1 map task 0",
+                         functools.partial(
+                             map_task, 0, icols, ivalid,
+                             InProcessShuffleService(), dev,
+                             q39v_plans(moy)[0], "q39v", "join",
+                             N_AGG_PARTS), card)
+        del icols, ivalid, kept
+    print(f"phases 13-14: {time.perf_counter() - new_phases:.1f} s | {card}")
+
+    errs = check_path_shapes(K, dev, rng, shapes)
+    max_err, hist_err = max(max_err, errs["hash_pid"]), \
+        max(hist_err, errs["hist"])
+
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all "
           f"| {card}")
     print(json.dumps({"kernels": [{
@@ -1307,7 +2008,10 @@ def main() -> int:
             "global_sort": sort_launches["hash_partition_ids_i64"],
             "q96": q96_launches["hash_partition_ids_i64"],
             "q88c": q88_launches["hash_partition_ids_i64"],
-            "q01_stages": q01_launches["hash_partition_ids_i64"]},
+            "q01_stages": q01_launches["hash_partition_ids_i64"],
+            "q17m_stages": q17m_launches["hash_partition_ids_i64"],
+            "float_keys": float_launches["hash_partition_ids_i64"],
+            "q39v_stages": q39v_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -1320,7 +2024,10 @@ def main() -> int:
             "global_sort": sort_launches["radix_bucket_hist"],
             "q96": q96_launches["radix_bucket_hist"],
             "q88c": q88_launches["radix_bucket_hist"],
-            "q01_stages": q01_launches["radix_bucket_hist"]},
+            "q01_stages": q01_launches["radix_bucket_hist"],
+            "q17m_stages": q17m_launches["radix_bucket_hist"],
+            "float_keys": float_launches["radix_bucket_hist"],
+            "q39v_stages": q39v_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
