@@ -106,6 +106,15 @@ conf.define(
     "auron.partial.agg.skipping.min.rows", 20480,
     "Do not consider partial-agg skipping before this many input rows.")
 conf.define(
+    "auron.string.width.buckets", "8,16,32,64,128,256",
+    "Fixed string byte-widths used for device string columns: a batch's "
+    "string column is as wide as the smallest bucket that holds its "
+    "longest value.")
+conf.define(
+    "auron.string.device.max.width", 256,
+    "Strings longer than this have no device layout; the JAX package "
+    "keeps them on the host as a HostColumn, which the port has not yet.")
+conf.define(
     "auron.kernel.sort.strategy", "auto",
     "Argsort family of the encoded-sort-key sorts: 'radix' = the "
     "pack-sort of ops/radix_sort.py (row index packed into the low bits "

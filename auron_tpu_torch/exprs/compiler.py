@@ -13,20 +13,30 @@ and Kleene `and`/`or`), `is_null`, `is_not_null`, `not`, `negative`,
 - float comparisons hold NaN equal to NaN and above every number;
 - a date plus or minus an integer is a date, a date minus a date an
   int32 count of days.
-The string, scalar-function, row-id, UDF, subquery and bloom kinds raise
-NotImplementedError naming the kind.  torch runs eagerly, so
-`build_evaluator` resolves the output types once and each call
-evaluates the trees directly.
+Over string and binary columns (`DeviceStringColumn`): a column
+reference passes its column through, a string literal is a broadcast
+string column (the JAX package's `values.py::literal_column`), built
+once per batch capacity and reused, CASE picks among string branches
+(`_case_strings`, the JAX package's), and `is_null` / `is_not_null`
+read the validity; any other kind with a string operand raises
+NotImplementedError naming the kind where the expression is built
+(`check_string_operands`), as the string, scalar-function, row-id, UDF,
+subquery and bloom kinds do.  torch runs eagerly, so `build_evaluator`
+resolves the output types once and each call evaluates the trees
+directly.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List
 
 import torch
 
-from auron_tpu_torch.columnar.batch import Batch, DeviceColumn, flat
+from auron_tpu_torch.columnar.batch import (
+    Batch, Column, DeviceColumn, DeviceStringColumn, bucket_width, flat,
+    string_col, string_width,
+)
 from auron_tpu_torch.exprs.cast import cast_column
 from auron_tpu_torch.exprs.typing import (
     CMP_OPS, binary_result_type, infer_type, promote,
@@ -37,16 +47,19 @@ from auron_tpu_torch.ir.schema import DataType, Schema, TypeId
 
 @dataclass
 class EvalCtx:
-    cols: List[DeviceColumn]
+    cols: List[Column]
     schema: Schema
     capacity: int
     device: torch.device
+    # broadcast string literals by (node id, capacity, device), kept by
+    # the CompiledExprs across its batches
+    literals: Dict[tuple, DeviceStringColumn] = field(default_factory=dict)
 
     def ones(self) -> torch.Tensor:
         return torch.ones(self.capacity, dtype=torch.bool, device=self.device)
 
 
-def evaluate(expr: E.Expr, ctx: EvalCtx) -> DeviceColumn:
+def evaluate(expr: E.Expr, ctx: EvalCtx) -> Column:
     fn = _DISPATCH.get(expr.kind)
     if fn is None:
         raise NotImplementedError(
@@ -54,12 +67,38 @@ def evaluate(expr: E.Expr, ctx: EvalCtx) -> DeviceColumn:
     return fn(expr, ctx)
 
 
-def _eval_column(e: E.Column, ctx: EvalCtx) -> DeviceColumn:
+def _eval_column(e: E.Column, ctx: EvalCtx) -> Column:
     return ctx.cols[ctx.schema.index_of(e.name)]
 
 
-def _eval_literal(e: E.Literal, ctx: EvalCtx) -> DeviceColumn:
+def _string_literal(e: E.Literal, dt: DataType, ctx: EvalCtx
+                    ) -> DeviceStringColumn:
+    """A string literal broadcast to every row (a None value: all null),
+    built once for each capacity: no operator writes a column in place."""
+    key = (id(e), ctx.capacity, ctx.device)
+    col = ctx.literals.get(key)
+    if col is not None:
+        return col
+    value = e.value
+    raw = b"" if value is None else \
+        value.encode("utf-8") if isinstance(value, str) else bytes(value)
+    data = torch.zeros(ctx.capacity, string_width(len(raw), dt),
+                       dtype=torch.uint8, device=ctx.device)
+    if raw:
+        data[:, :len(raw)] = torch.frombuffer(
+            bytearray(raw), dtype=torch.uint8).to(ctx.device)
+    valid = torch.full((ctx.capacity,), value is not None, dtype=torch.bool,
+                       device=ctx.device)
+    col = ctx.literals[key] = DeviceStringColumn(dt, data, torch.full(
+        (ctx.capacity,), len(raw), dtype=torch.int32, device=ctx.device),
+        valid)
+    return col
+
+
+def _eval_literal(e: E.Literal, ctx: EvalCtx) -> Column:
     dt = e.dtype if e.dtype.id != TypeId.NULL else DataType.bool_()
+    if dt.is_stringlike:
+        return _string_literal(e, dt, ctx)
     tdt = dt.torch_dtype()
     if e.value is None:
         return DeviceColumn(
@@ -207,14 +246,16 @@ def kleene(op: str, lc: DeviceColumn, rc: DeviceColumn) -> DeviceColumn:
 def _eval_sc(e, ctx: EvalCtx) -> DeviceColumn:
     # both sides are evaluated over the whole batch: the short circuit is
     # an optimisation of row-at-a-time engines, the value is Kleene logic
-    return kleene("and" if e.kind == "sc_and" else "or",
-                  evaluate(e.left, ctx), evaluate(e.right, ctx))
+    lc, rc = evaluate(e.left, ctx), evaluate(e.right, ctx)
+    return kleene("and" if e.kind == "sc_and" else "or", lc, rc)
 
 
-def _eval_case(e: E.Case, ctx: EvalCtx) -> DeviceColumn:
+def _eval_case(e: E.Case, ctx: EvalCtx) -> Column:
     out_dtype = infer_type(e, ctx.schema)
     if out_dtype.id == TypeId.NULL:
         out_dtype = DataType.bool_()
+    if out_dtype.is_stringlike:
+        return _case_strings(e, out_dtype, ctx)
     tdt = out_dtype.torch_dtype()
     data = torch.zeros(ctx.capacity, dtype=tdt, device=ctx.device)
     valid = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
@@ -232,6 +273,38 @@ def _eval_case(e: E.Case, ctx: EvalCtx) -> DeviceColumn:
     return flat(out_dtype, data, valid)
 
 
+def _case_strings(e: E.Case, out_dtype: DataType, ctx: EvalCtx
+                  ) -> DeviceStringColumn:
+    """CASE whose value is a string (the JAX package's `_case_strings`):
+    the branches' byte matrices padded to the widest; a null-literal
+    branch contributes no bytes, only a decided, null slot."""
+    def value(x: E.Expr):
+        return None if _null_literal(x) else evaluate(x, ctx)
+    branches = [(evaluate(br.when, ctx), value(br.then))
+                for br in e.branches]
+    el = value(e.else_expr) if e.else_expr is not None else None
+    strs = [t for _, t in branches if t is not None] + \
+        ([el] if el is not None else [])
+    w_max = max([t.width for t in strs], default=bucket_width(1))
+    data = torch.zeros(ctx.capacity, w_max, dtype=torch.uint8,
+                       device=ctx.device)
+    lens = torch.zeros(ctx.capacity, dtype=torch.int32, device=ctx.device)
+    valid = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    decided = torch.zeros_like(valid)
+    for w, t in branches:
+        fire = ~decided & w.validity & (w.data != 0)
+        if t is not None:
+            data = torch.where(fire[:, None], t.widened(w_max), data)
+            lens = torch.where(fire, t.lengths, lens)
+            valid = torch.where(fire, t.validity, valid)
+        decided = decided | fire
+    if el is not None:
+        data = torch.where(decided[:, None], data, el.widened(w_max))
+        lens = torch.where(decided, lens, el.lengths)
+        valid = torch.where(decided, valid, el.validity)
+    return string_col(out_dtype, data, lens, valid)
+
+
 def _eval_in_list(e: E.InList, ctx: EvalCtx) -> DeviceColumn:
     """SQL IN: true on a match; with no match, null when the list holds a
     null, else false (NOT IN negates, null stays null)."""
@@ -247,7 +320,7 @@ def _eval_in_list(e: E.InList, ctx: EvalCtx) -> DeviceColumn:
     return flat(DataType.bool_(), data, c.validity & (hit | ~null_in_list))
 
 
-_DISPATCH: Dict[str, Callable[..., DeviceColumn]] = {
+_DISPATCH: Dict[str, Callable[..., Column]] = {
     "column": _eval_column,
     "literal": _eval_literal,
     "binary": _eval_binary,
@@ -264,6 +337,53 @@ _DISPATCH: Dict[str, Callable[..., DeviceColumn]] = {
 }
 
 
+def _null_literal(x: E.Expr) -> bool:
+    return x.kind == "literal" and x.value is None
+
+
+def _operands(e: E.Expr) -> tuple:
+    if e.kind in ("column", "literal"):
+        return ()
+    if e.kind in ("binary", "sc_and", "sc_or"):
+        return (e.left, e.right)
+    if e.kind == "in_list":
+        return (e.child,) + tuple(e.values)
+    return (e.child,)
+
+
+def check_string_operands(e: E.Expr, schema: Schema) -> None:
+    """Raise NotImplementedError for a kind that would read a string
+    operand as flat values: only `is_null` / `is_not_null` take a string
+    operand, and a string CASE only string or null-literal values."""
+    if e.kind == "case":
+        values = [br.then for br in e.branches] + \
+            ([e.else_expr] if e.else_expr is not None else [])
+        string_case = infer_type(e, schema).is_stringlike
+        for x in [br.when for br in e.branches] + values:
+            check_string_operands(x, schema)
+        for br in e.branches:
+            t = infer_type(br.when, schema)
+            if t.is_stringlike:
+                raise NotImplementedError(
+                    f"expression 'case' over {t!r} is not in "
+                    f"auron_tpu_torch yet")
+        for x in values:
+            t = infer_type(x, schema)
+            if string_case and not t.is_stringlike and not _null_literal(x):
+                raise NotImplementedError(
+                    f"a string CASE with a {t!r} branch is not in "
+                    f"auron_tpu_torch yet")
+        return
+    for x in _operands(e):
+        check_string_operands(x, schema)
+        t = infer_type(x, schema)
+        if t.is_stringlike and e.kind not in ("is_null", "is_not_null"):
+            kind = f"binary {e.op}" if e.kind == "binary" else e.kind
+            raise NotImplementedError(
+                f"expression {kind!r} over {t!r} is not in "
+                f"auron_tpu_torch yet")
+
+
 class CompiledExprs:
     """A fixed expression list over one input schema."""
 
@@ -271,10 +391,13 @@ class CompiledExprs:
         self.exprs = tuple(exprs)
         self.schema = schema
         self.out_types = [infer_type(x, schema) for x in self.exprs]
+        for x in self.exprs:
+            check_string_operands(x, schema)
+        self._literals: Dict[tuple, DeviceStringColumn] = {}
 
-    def __call__(self, batch: Batch) -> List[DeviceColumn]:
+    def __call__(self, batch: Batch) -> List[Column]:
         ctx = EvalCtx(batch.columns, self.schema, batch.capacity,
-                      batch.device)
+                      batch.device, self._literals)
         return [evaluate(x, ctx) for x in self.exprs]
 
 

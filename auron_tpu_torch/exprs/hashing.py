@@ -10,6 +10,9 @@ every step masks back to 32 bits.  A product of two such words would
 overflow int64; `_mul32` splits the constant into 16-bit halves so every
 intermediate stays below 2^49.  The same code runs on the CPU and the
 card, and is the plain version the hash-pid kernel is held against.
+Strings hash as Spark's `hashUnsafeBytes` (`hash_bytes`), in torch ops
+as the JAX package computes them with jnp ops; no kernel of either
+package computes it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import List
 
 import torch
 
-from auron_tpu_torch.columnar.batch import DeviceColumn
+from auron_tpu_torch.columnar.batch import Column, DeviceStringColumn
 from auron_tpu_torch.ir.schema import TypeId
 
 _M32 = 0xFFFFFFFF
@@ -88,8 +91,41 @@ def hash_float64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return hash_int64(bits, seed)
 
 
-def hash_column(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
+def hash_bytes(data: torch.Tensor, lengths: torch.Tensor,
+               seed: torch.Tensor) -> torch.Tensor:
+    """Spark's hashUnsafeBytes of zero-padded byte rows: data
+    uint8[rows, W], lengths int32[rows], seed int64 words in [0, 2^32).
+    Each row mixes its len // 4 little-endian 4-byte blocks, then each
+    tail byte as a *signed* int8, then fmix with its length.  The blocks
+    of every position are read and mixed (`_mix_k1`) at once; only the
+    chain into h, which each row takes as far as its own length, goes
+    block by block."""
+    rows, w = data.shape
+    if w % 4:
+        data = torch.nn.functional.pad(data, (0, 4 - w % 4))
+    ln = lengths.to(torch.int64)
+    nblocks = ln // 4
+    # little-endian int32 words of each 4-byte block, as u32 in int64
+    k1 = _mix_k1(data.contiguous().view(torch.int32).to(torch.int64)
+                 & _M32)
+    h = seed
+    for b in range(k1.shape[1]):
+        h = torch.where(b < nblocks, _mix_h1(h, k1[:, b]), h)
+    # the (up to 3) tail bytes, sign-extended to 32 bits
+    at = torch.clamp(nblocks[:, None] * 4 + torch.arange(
+        3, device=data.device), max=data.shape[1] - 1)
+    tail = torch.gather(data, 1, at).to(torch.int64)
+    tail = _mix_k1(torch.where(tail >= 128, tail - 256, tail) & _M32)
+    for t in range(3):
+        h = torch.where(nblocks * 4 + t < ln, _mix_h1(h, tail[:, t]), h)
+    return _fmix(h, ln)
+
+
+def hash_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
     """Per-type dispatch; null rows keep the incoming seed."""
+    if isinstance(col, DeviceStringColumn):
+        return torch.where(col.validity,
+                           hash_bytes(col.data, col.lengths, seed), seed)
     tid = col.dtype.id
     if tid in (TypeId.BOOL, TypeId.INT8, TypeId.INT16, TypeId.INT32,
                TypeId.DATE32):
@@ -103,12 +139,12 @@ def hash_column(col: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
     return torch.where(col.validity, h, seed)
 
 
-def hash_columns(cols: List[DeviceColumn], seed: int = 42) -> torch.Tensor:
+def hash_columns(cols: List[Column], seed: int = 42) -> torch.Tensor:
     """Chained multi-column hash (each column's hash seeds the next),
     Spark HashExpression semantics; returns int32."""
-    c0 = cols[0].data
-    h = torch.full(c0.shape, seed & _M32, dtype=torch.int64,
-                   device=c0.device)
+    v0 = cols[0].validity
+    h = torch.full(v0.shape, seed & _M32, dtype=torch.int64,
+                   device=v0.device)
     for c in cols:
         h = hash_column(c, h)
     return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)

@@ -2,10 +2,12 @@
 auron_tpu/ir/schema.py).
 
 The full `TypeId` enum is kept so that every type name on the wire
-decodes; the port's device layer handles the flat types it maps to a
+decodes.  The port's device layer handles the flat types it maps to a
 torch dtype (`torch_dtype`): bool, int8/16/32/64, float64, date32 as
 int32 days and timestamp as int64 microseconds, the JAX package's
-physical types.
+physical types; and string and binary, whose device layout is the
+padded byte matrix of columnar/batch.py (`DeviceStringColumn`), so they
+have no torch dtype of their own.
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ class DataType:
     def date32() -> "DataType": return DataType(TypeId.DATE32)
     @staticmethod
     def timestamp_us() -> "DataType": return DataType(TypeId.TIMESTAMP_US)
+    @staticmethod
+    def string() -> "DataType": return DataType(TypeId.STRING)
+    @staticmethod
+    def binary() -> "DataType": return DataType(TypeId.BINARY)
 
     @property
     def is_integral(self) -> bool: return self.id in _INTEGRAL
@@ -83,9 +89,13 @@ class DataType:
         return self.id in (TypeId.FLOAT32, TypeId.FLOAT64)
     @property
     def is_decimal(self) -> bool: return self.id == TypeId.DECIMAL
+    @property
+    def is_stringlike(self) -> bool:
+        return self.id in (TypeId.STRING, TypeId.BINARY)
 
     def torch_dtype(self) -> torch.dtype:
-        """The device dtype of a flat column of this type."""
+        """The device dtype of a flat column of this type (a string type
+        raises: its column is a byte matrix and lengths)."""
         if self.id not in _TORCH_DTYPES:
             raise TypeError(f"type {self!r} has no device layout in "
                             f"auron_tpu_torch yet")
@@ -97,7 +107,7 @@ class DataType:
         return self.id.name.lower()
 
 
-def is_device_type(dtype: DataType) -> bool:
+def is_flat_type(dtype: DataType) -> bool:
     """Whether a column of this type has a flat device layout here."""
     return dtype.id in _TORCH_DTYPES
 

@@ -8,7 +8,14 @@ equal-key runs (`keys_equal_prev`), number the segments, and reduce every
 agg state over the segments.  The grouped batches are staged and merged,
 `_MERGE_FANIN` at a time, with the same reduction over partial states.
 Every key type the encoder holds groups: bool, int8/16/32/64, date32,
-timestamp and float64.  Null keys form one group (nulls first).  Float64
+timestamp, float64, string and binary.  Null keys form one group (nulls
+first).  A string key's words depend on its column's width, so every
+batch the operator reduces holds its rows at one width: the staged
+merges concatenate at the widest part (`concat_batches`), and so does
+the reduce side, one batch at a time.  A group's string key comes out
+at the width of the batch that formed it.  Over string inputs only
+Count runs; string Min, Max and First are host aggregates in the JAX
+package and are not ported.  Float64
 keys group as Spark's `NormalizeFloatingNumbers` leaves them: -0.0 with
 0.0 and every NaN together, and the key comes out normalized (0.0, the
 positive quiet NaN); the JAX package's words keep -0.0 apart from 0.0
@@ -32,7 +39,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 
 from auron_tpu_torch.columnar.batch import (
-    Batch, DeviceColumn, bucket_capacity, concat_batches,
+    Batch, Column, DeviceColumn, bucket_capacity, concat_batches,
 )
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs.compiler import build_evaluator
@@ -76,6 +83,13 @@ class AggExec(Operator):
                 flat_inputs.extend(a.children)
                 self._arg_slices.append((start, len(flat_inputs)))
             self._val_eval = build_evaluator(flat_inputs, in_schema)
+            for a, (lo, hi) in zip(aggs, self._arg_slices):
+                if a.fn != "count" and any(
+                        t.is_stringlike
+                        for t in self._val_eval.out_types[lo:hi]):
+                    raise NotImplementedError(
+                        f"aggregate {a.fn!r} over a string is not in "
+                        f"auron_tpu_torch yet")
         out_schema = self.state_schema if exec_mode == "partial" else \
             Schema(tuple(key_fields + [Field(n, a.return_type)
                                        for n, a in zip(agg_names, aggs)]))
@@ -87,8 +101,7 @@ class AggExec(Operator):
 
     # -- grouping ------------------------------------------------------
 
-    def _state_slices(self, cols: List[DeviceColumn]
-                      ) -> List[List[DeviceColumn]]:
+    def _state_slices(self, cols: List[Column]) -> List[List[Column]]:
         out, off = [], 0
         for spec in self.specs:
             k = len(spec.state_fields())
@@ -187,10 +200,10 @@ class AggExec(Operator):
         return Batch(self.schema, out, 1, cap)
 
 
-def group_reduce(keys: List[DeviceColumn],
-                 value_cols: List[List[DeviceColumn]], num_rows: int,
+def group_reduce(keys: List[Column],
+                 value_cols: List[List[Column]], num_rows: int,
                  specs: List[AggSpec], merge: bool, device: torch.device
-                 ) -> Tuple[List[DeviceColumn], int, int]:
+                 ) -> Tuple[List[Column], int, int]:
     """Sort-based group reduction of the first `num_rows` rows (with no
     keys, `_global_reduce` on `device`), as the JAX package's
     `_group_reduce_body`: the keys' words (ascending, nulls first) are
@@ -201,7 +214,7 @@ def group_reduce(keys: List[DeviceColumn],
     n = num_rows
     if not keys:
         return _global_reduce(value_cols, n, specs, merge, device)
-    live = [DeviceColumn(k.dtype, k.data[:n], k.validity[:n]) for k in keys]
+    live = [k.prefix(n) for k in keys]
     words = encode_sort_keys(live, [(True, True)] * len(live))
     perm = lexsort_indices(words, n, n, encode_sort_keys_bits(live))
     boundary = ~keys_equal_prev([w[perm] for w in words])
@@ -212,11 +225,9 @@ def group_reduce(keys: List[DeviceColumn],
     dev = perm.device
     valid = torch.arange(cap, device=dev) < n_groups
     key_src = torch.nn.functional.pad(perm[first], (0, cap - n_groups))
-    out: List[DeviceColumn] = [_group_key(k.gather(key_src, valid))
-                               for k in keys]
+    out: List[Column] = [_group_key(k.gather(key_src, valid)) for k in keys]
     for spec, cols in zip(specs, value_cols):
-        scols = [DeviceColumn(c.dtype, c.data[:n][perm], c.validity[:n][perm])
-                 for c in cols]
+        scols = [c.take(perm) for c in cols]
         states = spec.merge_segments(scols, seg, cap) if merge else \
             spec.update_segments(scols, seg, cap)
         # rows past the group count hold reductions of nothing
@@ -225,14 +236,14 @@ def group_reduce(keys: List[DeviceColumn],
     return out, n_groups, cap
 
 
-def _group_key(k: DeviceColumn) -> DeviceColumn:
+def _group_key(k: Column) -> Column:
     """A group's key as Spark emits it: a float64 key normalized."""
     if k.dtype.id != TypeId.FLOAT64:
         return k
     return DeviceColumn(k.dtype, normalize_f64(k.data), k.validity)
 
 
-def _global_reduce(value_cols: List[List[DeviceColumn]], n: int,
+def _global_reduce(value_cols: List[List[Column]], n: int,
                    specs: List[AggSpec], merge: bool, device: torch.device
                    ) -> Tuple[List[DeviceColumn], int, int]:
     """group_reduce with no keys: the first n rows (n > 0) are segment 0,
@@ -242,8 +253,7 @@ def _global_reduce(value_cols: List[List[DeviceColumn]], n: int,
     first = torch.arange(cap, device=device) < 1
     out: List[DeviceColumn] = []
     for spec, cols in zip(specs, value_cols):
-        live = [DeviceColumn(c.dtype, c.data[:n], c.validity[:n])
-                for c in cols]
+        live = [c.prefix(n) for c in cols]
         states = spec.merge_segments(live, seg, cap) if merge else \
             spec.update_segments(live, seg, cap)
         # rows past the one group hold reductions of nothing

@@ -30,7 +30,7 @@ from typing import List
 import torch
 
 from auron_tpu_torch.columnar.batch import DeviceColumn, flat
-from auron_tpu_torch.ir.schema import DataType, Field, is_device_type
+from auron_tpu_torch.ir.schema import DataType, Field, is_flat_type
 from auron_tpu_torch.ops.segments import sorted_segment_max as _seg_max
 from auron_tpu_torch.ops.segments import sorted_segment_min as _seg_min
 from auron_tpu_torch.ops.segments import sorted_segment_sum as _seg_sum
@@ -233,7 +233,7 @@ def make_spec(fn: str, out_dtype: DataType, name: str) -> AggSpec:
     package's dispatch, for the flat device types the port holds).  Min,
     Max and First return their input's type; an input the port cannot
     hold already fails where its expression is built."""
-    flat_out = is_device_type(out_dtype)
+    flat_out = is_flat_type(out_dtype)
     if fn == "sum" and (out_dtype.is_integral or out_dtype.is_floating):
         return SumSpec(fn, out_dtype, name)
     if fn == "count":

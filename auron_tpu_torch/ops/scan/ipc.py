@@ -3,9 +3,11 @@ auron_tpu/ops/scan/ipc.py).
 
 `FFIReaderExec` imports the front end's batches.  The resource is an
 iterable whose items are `(arrays, validities)` pairs of numpy columns
-(the Arrow C-Data import's counterpart; a None validity means no nulls)
-or `pyarrow.RecordBatch`es; each is uploaded to the task's device.
-pyarrow is imported only when such a batch arrives.
+(the Arrow C-Data import's counterpart; a None validity means no nulls;
+a string column an object array of `str` or `bytes`) or
+`pyarrow.RecordBatch`es; each is uploaded to the task's device.
+pyarrow is imported only when such a batch arrives.  A string longer
+than `auron.string.device.max.width` raises (`columnar/batch.py`).
 
 `IpcReaderExec` reads a partition-indexed source (`for_partition`), whose
 blocks are the port's device `Batch`es: the JAX reader's branch for
@@ -64,7 +66,9 @@ def arrow_to_numpy(rb):
     """(arrays, validities) of a pyarrow RecordBatch, nulls as zeros,
     each column as the integers or floats of its device layout (as the
     JAX package's `Batch.from_arrow` imports them): date32 as int32
-    days, a timestamp as int64 microseconds, bool as bool."""
+    days, a timestamp as int64 microseconds, bool as bool; a string or
+    binary column as an object array of `str` or `bytes`, None where
+    null."""
     import pyarrow as pa
     if not isinstance(rb, pa.RecordBatch):
         raise TypeError(f"FFI item of type {type(rb).__name__}: want a "
@@ -73,6 +77,12 @@ def arrow_to_numpy(rb):
     for col in rb.columns:
         validities.append(np.array(col.is_valid()))
         t = col.type
+        if pa.types.is_string(t) or pa.types.is_large_string(t) or \
+                pa.types.is_binary(t) or pa.types.is_large_binary(t):
+            vals = np.empty(len(col), dtype=object)
+            vals[:] = col.to_pylist()
+            arrays.append(vals)
+            continue
         if pa.types.is_date32(t):
             col = col.cast(pa.int32())
         elif pa.types.is_timestamp(t):

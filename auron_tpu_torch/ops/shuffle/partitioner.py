@@ -4,7 +4,9 @@ auron_tpu/ops/shuffle/partitioner.py): hash, range and single modes.
 hash: pmod(murmur3(keys, seed=42), N), bit-identical to Spark and the JAX
 package.  A single int64/timestamp key goes through the hand-written
 hash-pid kernel (ops/kernels_cuda.py) when the batch is on the card, and
-through its plain version on the CPU; several keys chain `hash_columns`.
+through its plain version on the CPU, whatever other columns (strings
+among them) the batch carries; several keys, or a key of another type
+(a string hashes as Spark's `hashUnsafeBytes`), chain `hash_columns`.
 
 range: the id is the count of bounds lexicographically below the row's
 sort key (ties go to the lower partition), over the sort-key words of
@@ -107,6 +109,10 @@ def encoded_range_bounds(range_bounds, dtypes: Sequence[DataType],
     rows = list(range_bounds)
     words: List[np.ndarray] = []
     for ki, (dt, (asc, nf)) in enumerate(zip(dtypes, orders)):
+        if dt.is_stringlike:
+            raise NotImplementedError(
+                f"range partitioning by a {dt!r} key is not in "
+                f"auron_tpu_torch yet")
         vals = [r[ki] for r in rows]
         mask = np.array([v is not None for v in vals], dtype=bool)
         np_dt = torch.empty(0, dtype=dt.torch_dtype()).numpy().dtype

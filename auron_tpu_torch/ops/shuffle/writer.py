@@ -15,13 +15,14 @@ writer's host counting sort (`native/bindings.py::partition_sort`):
   input order inside a partition, as `partition_sort` keeps it;
 - the sizes are the one host read per batch.
 Each non-empty partition's rows become one block: a view of the batch's
-partition-sorted columns, unpadded (its capacity is its row count), that
-stays on the device.
+partition-sorted columns (a string column's bytes, lengths and validity
+alike), unpadded (its capacity is its row count), that stays on the
+device.
 
 The JAX package frames blocks as Arrow-IPC/v2 bytes (columnar/serde.py),
 which needs pyarrow; here a block is pushed as the `Batch` itself, and
 the `bytes` column of the writer's output counts the block tensors'
-bytes instead of frame bytes.
+bytes instead of frame bytes (a string column W + 4 + 1 a row).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import numpy as np
 import torch
 
 from auron_tpu_torch.columnar.batch import (
-    Batch, DeviceColumn, bucket_capacity, concat_batches, from_numpy,
+    Batch, Column, DeviceColumn, DeviceStringColumn, bucket_capacity,
+    concat_batches, from_numpy,
 )
 from auron_tpu_torch.ir.plan import Partitioning
 from auron_tpu_torch.ir.schema import DataType, Field, Schema
@@ -77,6 +79,18 @@ def sizes_by_bincount(pids: torch.Tensor, n_parts: int) -> np.ndarray:
     return torch.bincount(pids, minlength=n_parts).cpu().numpy()
 
 
+def split_column(c: Column, order: torch.Tensor, split: List[int]
+                 ) -> List[Column]:
+    """The column's rows in `order`, cut into consecutive parts of
+    `split` rows (views of one gathered copy)."""
+    if isinstance(c, DeviceStringColumn):
+        return [DeviceStringColumn(c.dtype, d, ln, v) for d, ln, v in zip(
+            c.data[order].split(split), c.lengths[order].split(split),
+            c.validity[order].split(split))]
+    return [DeviceColumn(c.dtype, d, v) for d, v in zip(
+        c.data[order].split(split), c.validity[order].split(split))]
+
+
 class RssShuffleWriterExec(Operator):
     def __init__(self, child: Operator, partitioning: Partitioning,
                  rss_resource_id: str):
@@ -91,43 +105,37 @@ class RssShuffleWriterExec(Operator):
             partitioning.num_partitions) <= HIST_MAX_BITS \
             else sizes_by_bincount
 
-    def _partitioned_stream(self, ctx: TaskContext
-                            ) -> Iterator[Tuple[int, Batch]]:
-        """(pid, block) for every non-empty partition of every batch."""
-        n_parts = self.partitioning.num_partitions
-        for b in self.child_stream(ctx):
-            n = b.num_rows
-            if n == 0:
-                continue
-            pids = self._computer(b)
-            order = torch.sort(pids, stable=True).indices
-            sizes = self._sizes(pids, n_parts)
-            self.count(self._sizes.__name__)
-            self.count("shuffle_write_batches")
-            self.count("shuffle_write_rows", n)
-            split = sizes.tolist()
-            parts = [(c.data[order].split(split),
-                      c.validity[order].split(split)) for c in b.columns]
-            for pid in np.flatnonzero(sizes):
-                rows = int(sizes[pid])
-                yield int(pid), Batch(b.schema, [
-                    DeviceColumn(c.dtype, d[pid], v[pid])
-                    for c, (d, v) in zip(b.columns, parts)], rows, rows)
+    def _partition(self, b: Batch) -> Tuple[np.ndarray, List[List[Column]]]:
+        """Rows per partition, and each column's rows cut into one part
+        per partition."""
+        pids = self._computer(b)
+        order = torch.sort(pids, stable=True).indices
+        sizes = self._sizes(pids, self.partitioning.num_partitions)
+        self.count(self._sizes.__name__)
+        self.count("shuffle_write_batches")
+        self.count("shuffle_write_rows", b.num_rows)
+        split = sizes.tolist()
+        return sizes, [split_column(c, order, split) for c in b.columns]
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
         writer: RssPartitionWriter = ctx.resources.get(self.rss_resource_id)
         n_parts = self.partitioning.num_partitions
         rows = np.zeros(n_parts, np.int64)
-        for pid, block in self._partitioned_stream(ctx):
-            writer.write(pid, block)
-            rows[pid] += block.num_rows
+        nbytes = np.zeros(n_parts, np.int64)
+        for b in self.child_stream(ctx):
+            if b.num_rows == 0:
+                continue
+            sizes, parts = self._partition(b)
+            for pid in np.flatnonzero(sizes):
+                n = int(sizes[pid])
+                writer.write(int(pid), Batch(b.schema, [p[pid] for p in parts],
+                                             n, n))
+            rows += sizes
+            # blocks hold their rows unpadded
+            nbytes += sizes * (b.mem_bytes() // b.capacity)
         writer.flush()
-        # blocks hold their rows unpadded: data and validity bytes per row
-        row_bytes = sum(torch.empty(0, dtype=f.dtype.torch_dtype())
-                        .element_size() + 1 for f in self.children[0].schema)
         yield from_numpy(self.schema, [np.arange(n_parts, dtype=np.int32),
-                                       rows * row_bytes, rows],
-                         device=ctx.device)
+                                       nbytes, rows], device=ctx.device)
 
 
 class InProcessShuffleService:

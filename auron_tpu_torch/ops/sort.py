@@ -1,10 +1,11 @@
 """Sort operator, in memory (counterpart of auron_tpu/ops/sort.py).
 
-`SortExec` stages its input, concatenates it into one batch, encodes the
-sort keys into words (ops/sort_keys.py), sorts them with the JAX
-package's strategy switch (`lexsort_indices`), gathers the rows, and cuts
-the result into batch-size chunks; fetch limit and offset apply as in the
-JAX operator.  Its metric `sorted_by_<form>` counts the sorts of each
+`SortExec` stages its input, concatenates it into one batch (string
+columns padded to the widest part, so every row's key has the same
+words), encodes the sort keys into words (ops/sort_keys.py), sorts them
+with the JAX package's strategy switch (`lexsort_indices`), gathers the
+rows, and cuts the result into batch-size chunks; fetch limit and offset
+apply as in the JAX operator.  Its metric `sorted_by_<form>` counts the sorts of each
 form (`sort_keys.sort_form`).  The JAX operator's spill runs, its host
 k-way merge (`HostKeyMerger`) and its host sort of host-resident key
 columns wait for the port's memory manager: this operator keeps every
@@ -12,7 +13,8 @@ staged row on the device, and when the card cannot hold them torch
 raises its out-of-memory error; no row is dropped.
 
 `_np_encode_key` is the host mirror of the device encoder, used to encode
-range bounds in the same key space (ops/shuffle/partitioner.py).
+range bounds in the same key space (ops/shuffle/partitioner.py); it has
+no string arm, since no range exchange of the port sorts by a string.
 """
 
 from __future__ import annotations

@@ -9,8 +9,15 @@ Word representation.  torch has no uint64 comparison or sort, so every
 word is an int64 tensor:
 - a u32 word (a claim of at most 32 bits: null rank, bool, int8/16/32,
   date32) is held as its non-negative value;
-- a u64 word (a claim of 64 bits: int64, timestamp, float64) is held as
-  `u ^ 2^63`, so that signed order is unsigned order.
+- a u64 word (a claim of 64 bits: int64, timestamp, float64, each 8
+  bytes of a string) is held as `u ^ 2^63`, so that signed order is
+  unsigned order.
+A string or binary column of width W gives ceil(W / 8) words, its bytes
+big-endian 8 at a time (zero-padded), then its length as a u32 word:
+Spark's binary order, where a proper prefix sorts first and `"ab"`
+before `"ab\\x00"`.  The words depend on the width, so the rows they
+compare must be at one width (`concat_batches` pads every part to the
+widest).
 The words are the JAX package's words in this representation, with one
 difference, for float64: Spark compares -0.0 equal to 0.0 and puts every
 NaN after +inf, all NaNs equal.  The JAX encoder orders -0.0 before 0.0
@@ -31,9 +38,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from auron_tpu_torch.columnar.batch import DeviceColumn
+from auron_tpu_torch.columnar.batch import Column, DeviceStringColumn
 from auron_tpu_torch.ir.schema import DataType, TypeId
-from auron_tpu_torch.ops.radix_sort import radix_sort_indices
+from auron_tpu_torch.ops.radix_sort import SIGN64, radix_sort_indices
 from auron_tpu_torch.ops.strategy import sort_strategy
 
 MASK32 = 0xFFFFFFFF
@@ -46,13 +53,16 @@ WIDE_INTS = (TypeId.INT64, TypeId.TIMESTAMP_US)
 
 def value_bits(dtype: DataType) -> int:
     """Claimed bit width of a column's value word (before the null-rank
-    word): 1 for bool, 32 for narrow ints, 64 for 64-bit types; raises
-    for a type the port cannot encode yet."""
+    word): 1 for bool, 32 for narrow ints, 64 for 64-bit types and for
+    each byte word of a string (whose count depends on the column's
+    width, `encode_key_column_bits`); raises for a type the port cannot
+    encode yet."""
     if dtype.id == TypeId.BOOL:
         return 1
     if dtype.id in NARROW_INTS:
         return 32
-    if dtype.id in WIDE_INTS or dtype.id == TypeId.FLOAT64:
+    if dtype.id in WIDE_INTS or dtype.id == TypeId.FLOAT64 or \
+            dtype.is_stringlike:
         return 64
     raise NotImplementedError(
         f"sort keys of type {dtype!r} are not in auron_tpu_torch yet")
@@ -77,10 +87,31 @@ def f64_from_word(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 0, w, w ^ F64_NEG_FLIP).view(torch.float64)
 
 
-def encode_key_column(col: DeviceColumn, asc: bool = True,
+def string_words(col: DeviceStringColumn) -> List[torch.Tensor]:
+    """The byte words of a string column (ascending), then its length."""
+    rows, w = col.data.shape
+    nw = (w + 7) // 8
+    d = col.data if w == 8 * nw else \
+        torch.nn.functional.pad(col.data, (0, 8 * nw - w))
+    # 8 bytes reversed and read as a little-endian int64 is the u64 of
+    # the bytes big-endian; then the word's top bit flipped
+    be = d.reshape(rows, nw, 8).flip(-1).contiguous().view(torch.int64)
+    words = list((be.reshape(rows, nw) ^ SIGN64).unbind(1))
+    return words + [col.lengths.to(torch.int64)]
+
+
+def encode_key_column(col: Column, asc: bool = True,
                       nulls_first: bool = True) -> List[torch.Tensor]:
-    """-> [null rank, value word] as int64[capacity] words, most
+    """-> [null rank, value word(s)] as int64[capacity] words, most
     significant first."""
+    # the rank is 1 where the row sorts after the other kind
+    null_rank = (col.validity if nulls_first else ~col.validity) \
+        .to(torch.int64)
+    if isinstance(col, DeviceStringColumn):
+        words = string_words(col)
+        if not asc:
+            words = [~w for w in words[:-1]] + [words[-1] ^ MASK32]
+        return [null_rank] + words
     tid = col.dtype.id
     nbits = value_bits(col.dtype)
     if tid == TypeId.FLOAT64:
@@ -91,19 +122,18 @@ def encode_key_column(col: DeviceColumn, asc: bool = True,
         w = col.data.to(torch.int64)
     if not asc:
         w = ~w if nbits == 64 else w ^ MASK32
-    # the rank is 1 where the row sorts after the other kind
-    null_rank = (col.validity if nulls_first else ~col.validity) \
-        .to(torch.int64)
     return [null_rank, w]
 
 
-def encode_key_column_bits(col: DeviceColumn) -> List[int]:
+def encode_key_column_bits(col: Column) -> List[int]:
     """Meaningful bit width of each word `encode_key_column` emits (of the
     unflipped value set); must stay in lockstep with it."""
+    if isinstance(col, DeviceStringColumn):
+        return [1] + [64] * ((col.width + 7) // 8) + [32]
     return [1, value_bits(col.dtype)]
 
 
-def encode_sort_keys(cols: Sequence[DeviceColumn],
+def encode_sort_keys(cols: Sequence[Column],
                      orders: Sequence[Tuple[bool, bool]]
                      ) -> List[torch.Tensor]:
     """Columns + (asc, nulls_first) -> word list, most significant
@@ -114,7 +144,7 @@ def encode_sort_keys(cols: Sequence[DeviceColumn],
     return words
 
 
-def encode_sort_keys_bits(cols: Sequence[DeviceColumn]) -> List[int]:
+def encode_sort_keys_bits(cols: Sequence[Column]) -> List[int]:
     """Bit widths parallel to encode_sort_keys' word list."""
     bits: List[int] = []
     for col in cols:

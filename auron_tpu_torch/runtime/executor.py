@@ -13,10 +13,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from auron_tpu_torch import resolve_device
-from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.columnar.batch import Batch, empty_numpy
 from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ir import serde as ir_serde
 from auron_tpu_torch.ir.schema import Schema
@@ -32,13 +31,14 @@ class ExecutionResult:
     metrics: Dict[str, int] = field(default_factory=dict)   # root operator
 
     def to_numpy(self) -> Dict[str, tuple]:
-        """{column name: (data, validity)} of all rows, on the host."""
+        """{column name: (data, validity)} of all rows, on the host (a
+        string column as an object array, `Batch.to_numpy`)."""
         parts = [b.to_numpy() for b in self.batches]
         out = {}
         for i, f in enumerate(self.schema):
-            empty = torch.empty(0, dtype=f.dtype.torch_dtype()).numpy()
             out[f.name] = (
-                np.concatenate([empty] + [p[0][i] for p in parts]),
+                np.concatenate([empty_numpy(f.dtype)] +
+                               [p[0][i] for p in parts]),
                 np.concatenate([np.zeros(0, bool)] + [p[1][i] for p in parts]))
         return out
 

@@ -92,9 +92,34 @@ the sources in this checkout.  Phases, each fatal on failure:
     hash(4)); check the kept groups, their means and sdevs against
     numpy, the histogram on every writer batch and no hash-pid (two
     keys); profile one map task; print the seconds phases 13-14 took;
-15. hold each kernel bit-exact against its plain version at every
-    (rows, n_parts) the writers of phases 3-14 gave it, as their metrics
-    report them.
+15. (run last) hold each kernel bit-exact against its plain version at
+    every (rows, n_parts) the writers of phases 3-14 and 16-18 gave it,
+    as their metrics report them;
+16. run TPC-DS q09c and q41d whole as the converter lowers them, with
+    string columns on the card: q09c over the store_sales rows (8 map
+    tasks: Projection of a nested CASE into the string band "1-20",
+    "21-60", "61-100" -> partial Count, Average by the band -> hash(4)
+    on the string; 4 tasks: final -> Sort fetch 10 -> single; 1 task:
+    Sort fetch 10 -> Projection), checked against numpy; q41d over SF-10
+    item (102,000 rows, i_brand and i_class strings; 1 map task: Filter
+    30 <= price <= 70 -> partial Count by (i_brand, i_class) -> hash(4)
+    on both strings; 4 tasks: final -> Sort fetch 100 -> single; 1
+    task), its 100 rows (of 171 groups, the null ones first) against
+    Python's sort; profile one q09c map task;
+17. run q01's customer exchange (SF-10 customer, 500,000 rows, 2 map
+    tasks: FFIReader -> hash(4) by c_customer_sk, the c_customer_id
+    strings carried: hash-pid on batches that carry a string) and q01's
+    take-ordered above its sort-merge join, fed the join's rows computed
+    in numpy from phase 12's store_returns, one task per hash partition
+    (Sort fetch 100 by (c_customer_id, sr_store_sk, ctr_total_return
+    DESC) -> single; Sort fetch 100 -> Projection(c_customer_id));
+    check every customer in its Spark partition with its id intact, and
+    the top 100 against Python's sort; profile one take-ordered task;
+18. run a group-by of 2^20 rows by 1,000 string keys of 0-40 UTF-8 bytes
+    (the empty string, keys apart only by a trailing NUL, non-ASCII
+    first bytes), batches of width 8 alternating with wider ones: Count
+    and Sum through hash(4), checked against Python, each group in
+    pmod(Spark's hashUnsafeBytes, 4) computed in plain Python.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -233,10 +258,11 @@ def _writer(child, mode: str, n_parts: int, exprs=(), **partitioning):
 
 
 def _schema(*fields):
-    """A Schema of (name, "i32" | "i64" | "f64"[, nullable]) fields."""
+    """A Schema of (name, "i32" | "i64" | "f64" | "str"[, nullable])
+    fields."""
     from auron_tpu_torch.ir.schema import DataType, Field, Schema
     types = {"i32": DataType.int32(), "i64": DataType.int64(),
-             "f64": DataType.float64()}
+             "f64": DataType.float64(), "str": DataType.string()}
     return Schema.of(*(Field(n, types[t], nullable=nullable)
                        for n, t, nullable in
                        ((f + (True,))[:3] for f in fields)))
@@ -313,10 +339,11 @@ def stage_plans():
 
 
 def map_task(m: int, cols, valid, svc, dev, plan=None, shuffle_id="ss",
-             source="store_sales", n_maps=N_MAPS):
+             source="store_sales", n_maps=N_MAPS, split=None):
     """Map task m of n_maps of `plan` (default: the group-by map plan)
     through execute_task_bytes, its scan leaf `source` fed split m of the
-    rows, writing into `svc` under `shuffle_id`."""
+    rows (or the rows [lo, hi) of `split`), writing into `svc` under
+    `shuffle_id`."""
     from auron_tpu_torch.config import conf
     from auron_tpu_torch.ir import plan as P
     from auron_tpu_torch.ir import serde
@@ -324,7 +351,7 @@ def map_task(m: int, cols, valid, svc, dev, plan=None, shuffle_id="ss",
     from auron_tpu_torch.runtime.resources import ResourceRegistry
     rows = len(cols[0])
     bs = int(conf.get("auron.batch.size"))
-    lo, hi = m * rows // n_maps, (m + 1) * rows // n_maps
+    lo, hi = split or (m * rows // n_maps, (m + 1) * rows // n_maps)
     res = ResourceRegistry()
     # the front end's scan batches: batch-size slices of the split
     res.put(source, [
@@ -1206,18 +1233,27 @@ def q17m_plans():
                      ("max_q#max", "i32"), ("avg_r#sum", "f64"),
                      ("avg_r#count", "i64", False), ("n#count", "i64", False))
     order = (E.SortExpr(child=store, asc=True, nulls_first=True),)
-    stage2 = _writer(P.Sort(
-        child=agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
-                  "final"), sort_exprs=order, fetch_limit=100), "single", 1)
     out = _schema(("ss_store_sk", "i64"), ("min_q", "i32"),
                   ("max_q", "i32"), ("avg_r", "f64"), ("n", "i64"))
-    stage3 = P.Projection(
+    return (stage1,) + _take_ordered(
+        agg(P.IpcReader(schema=states, resource_id="shuffle_read"), "final"),
+        order, 100, out, [f.name for f in out])
+
+
+def _take_ordered(child, order, limit: int, out, names):
+    """The converter's take-ordered over `child` (a plan of schema
+    `out`): (Sort(fetch limit) -> single-partition writer, then
+    Sort(fetch limit) -> Projection of `names`)."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    stage = _writer(P.Sort(child=child, sort_exprs=order, fetch_limit=limit),
+                    "single", 1)
+    top = P.Projection(
         child=P.Sort(child=P.IpcReader(schema=out,
                                        resource_id="shuffle_read"),
-                     sort_exprs=order, fetch_limit=100),
-        exprs=tuple(E.col(f.name) for f in out),
-        names=tuple(f.name for f in out))
-    return stage1, stage2, stage3
+                     sort_exprs=order, fetch_limit=limit),
+        exprs=tuple(E.col(n) for n in names), names=tuple(names))
+    return stage, top
 
 
 def q39v_plans(moy: int):
@@ -1707,12 +1743,594 @@ def check_segments_on_card(dev, rng, card: str) -> None:
           f"+-0.0, bool; {n} rows, {n_seg} segments) | {card}")
 
 
+# ---------------------------------------------------------------------------
+# string columns: q09c and q41d whole, q01's customer exchange and its
+# take-ordered, string keys at every width (phases 16 to 18)
+# ---------------------------------------------------------------------------
+
+SF10_BRANDS, SF10_CLASSES = 50, 20   # `it/datagen.py`'s i_brand, i_class
+ITEM = (("i_brand", "str"), ("i_class", "str"), ("i_current_price", "f64"))
+CUSTOMER = (("c_customer_sk", "i64"), ("c_customer_id", "str"))
+Q01_JOIN = (("sr_customer_sk", "i64"), ("sr_store_sk", "i64"),
+            ("ctr_total_return", "f64"), ("avg_store_sk", "i64"),
+            ("threshold", "f64"), ("c_customer_sk", "i64"),
+            ("c_customer_id", "str"))
+N_CUSTOMER_MAPS = 2                  # customer's two chunks in `it/datagen.py`
+STRING_KEY_ROWS = 1 << 20
+STRING_KEY_VALUES = 1_000
+STRING_KEY_MAX_BYTES = 40
+# ASCII, NUL and characters whose UTF-8 bytes are >= 0x80
+STRING_KEY_CHARS = ("a", "b", "Z", "~", "0", "\x00", "\x7f", "é", "ß", "€",
+                    "日", "\U0001f600")
+SPARK_HASH_SEED = 42
+
+
+def q09c_plans():
+    """q09c in the port's IR, as the converter lowers it
+    (tests/test_torch_corpus_strings.py holds them to its JSON): (stage
+    1: Projection(band CASE, price) -> partial Count, Average by band ->
+    hash(4) on the band; stage 2: final -> Sort(fetch 10) -> single;
+    stage 3: Sort(fetch 10) -> Projection)."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    i32, i64 = DataType.int32(), DataType.int64()
+    f64, s = DataType.float64(), DataType.string()
+    qty, price, band = E.col("ss_quantity"), E.col("ss_sales_price"), \
+        E.col("band")
+
+    def up_to(bound, label, otherwise):
+        return E.Case(branches=(E.WhenThen(
+            when=E.BinaryExpr(left=qty, op="<=",
+                              right=E.Literal(value=bound, dtype=i32)),
+            then=E.Literal(value=label, dtype=s)),), else_expr=otherwise)
+    proj = P.Projection(
+        child=P.FFIReader(schema=_schema(*STORE_SALES[1:]),
+                          resource_id="store_sales"),
+        exprs=(up_to(20, "1-20", up_to(60, "21-60",
+                                       E.Literal(value="61-100", dtype=s))),
+               price),
+        names=("band", "ss_sales_price"))
+    aggs = (E.AggExpr(fn="count", children=(price,), return_type=i64),
+            E.AggExpr(fn="avg", children=(price,), return_type=f64))
+
+    def agg(child, mode):
+        return P.Agg(child=child, exec_mode=mode, grouping=(band,),
+                     grouping_names=("band",), aggs=aggs,
+                     agg_names=("cnt", "avg_price"))
+    states = _schema(("band", "str"), ("cnt#count", "i64", False),
+                     ("avg_price#sum", "f64"),
+                     ("avg_price#count", "i64", False))
+    out = _schema(("band", "str"), ("cnt", "i64"), ("avg_price", "f64"))
+    return (_writer(agg(proj, "partial"), "hash", N_AGG_PARTS, (band,)),) + \
+        _take_ordered(
+            agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
+                "final"), (E.SortExpr(child=band, asc=True, nulls_first=True),),
+            10, out, [f.name for f in out])
+
+
+def q41d_plans():
+    """q41d as the converter lowers it: (stage 1: Filter(30 <= price <=
+    70) -> partial Count by (i_brand, i_class) -> hash(4) on both;
+    stage 2: final -> Sort(fetch 100) -> single; stage 3: Sort(fetch
+    100) -> Projection(i_brand, i_class))."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    i64, f64 = DataType.int64(), DataType.float64()
+    price = E.col("i_current_price")
+    names = ("i_brand", "i_class")
+    keys = tuple(E.col(n) for n in names)
+    aggs = (E.AggExpr(fn="count", children=(), return_type=i64),)
+
+    def agg(child, mode):
+        return P.Agg(child=child, exec_mode=mode, grouping=keys,
+                     grouping_names=names, aggs=aggs, agg_names=("n",))
+    banded = P.Filter(
+        child=P.FFIReader(schema=_schema(*ITEM), resource_id="item"),
+        predicates=(E.BinaryExpr(left=price, op=">=",
+                                 right=E.Literal(value=30.0, dtype=f64)),
+                    E.BinaryExpr(left=price, op="<=",
+                                 right=E.Literal(value=70.0, dtype=f64))))
+    states = _schema(("i_brand", "str"), ("i_class", "str"),
+                     ("n#count", "i64", False))
+    out = _schema(("i_brand", "str"), ("i_class", "str"), ("n", "i64"))
+    order = tuple(E.SortExpr(child=k, asc=True, nulls_first=True)
+                  for k in keys)
+    return (_writer(agg(banded, "partial"), "hash", N_AGG_PARTS, keys),) + \
+        _take_ordered(agg(P.IpcReader(schema=states,
+                                      resource_id="shuffle_read"), "final"),
+                      order, 100, out, names)
+
+
+def q01_customer_plan():
+    """The customer side of q01's sort-merge join as the converter lowers
+    it: the scan straight into hash(4) by c_customer_sk."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    return _writer(P.FFIReader(schema=_schema(*CUSTOMER),
+                               resource_id="customer"),
+                   "hash", N_AGG_PARTS, (E.col("c_customer_sk"),))
+
+
+def q01_top_plans():
+    """q01's take-ordered above its sort-merge join, the join an
+    FFIReader of its output rows: (Sort(fetch 100) by (c_customer_id,
+    sr_store_sk, ctr_total_return DESC NULLS LAST) -> single;
+    Sort(fetch 100) -> Projection(c_customer_id))."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    join = _schema(*Q01_JOIN)
+    order = (E.SortExpr(child=E.col("c_customer_id"), asc=True,
+                        nulls_first=True),
+             E.SortExpr(child=E.col("sr_store_sk"), asc=True,
+                        nulls_first=True),
+             E.SortExpr(child=E.col("ctr_total_return"), asc=False,
+                        nulls_first=False))
+    return _take_ordered(P.FFIReader(schema=join, resource_id="join"), order,
+                         100, join, ("c_customer_id",))
+
+
+def string_key_plans():
+    """Count and Sum of v by the string key k: map partial Agg -> hash(4)
+    on k, reduce final Agg."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    i64 = DataType.int64()
+    key = (E.col("k"),)
+    aggs = (E.AggExpr(fn="count", children=(E.col("v"),), return_type=i64),
+            E.AggExpr(fn="sum", children=(E.col("v"),), return_type=i64))
+
+    def agg(child, mode):
+        return P.Agg(child=child, exec_mode=mode, grouping=key,
+                     grouping_names=("k",), aggs=aggs, agg_names=("n", "s"))
+    src = P.FFIReader(schema=_schema(("k", "str"), ("v", "i64")),
+                      resource_id="strings")
+    states = _schema(("k", "str"), ("n#count", "i64", False), ("s#sum", "i64"))
+    return (_writer(agg(src, "partial"), "hash", N_AGG_PARTS, key),
+            agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
+                "final"))
+
+
+def _objects(values) -> np.ndarray:
+    out = np.empty(len(values), dtype=object)
+    out[:] = values
+    return out
+
+
+def make_item(seed: int, rows: int = SF10_ITEMS):
+    """SF-10 item as `it/datagen.py` draws the columns q41d reads:
+    i_brand "brand#{sk % 50}", i_class "class#{sk % 20}", i_current_price
+    uniform 0.5-100.0 in cents, each column with NULL_FRACTION nulls."""
+    rng = np.random.default_rng([seed, 41])
+    sk = np.arange(1, rows + 1)
+    brands = _objects([f"brand#{i}" for i in range(SF10_BRANDS)])
+    classes = _objects([f"class#{i}" for i in range(SF10_CLASSES)])
+    price = np.round(rng.uniform(0.5, 100.0, rows), 2)
+    return ([brands[sk % SF10_BRANDS], classes[sk % SF10_CLASSES], price],
+            [rng.random(rows) >= NULL_FRACTION for _ in range(3)])
+
+
+def customer_ids(sk: np.ndarray) -> np.ndarray:
+    """c_customer_id of each customer key: "C" and the key in 9 digits."""
+    return _objects([f"C{k:09d}" for k in sk.tolist()])
+
+
+def make_customer(rows: int = SF10_CUSTOMERS):
+    """SF-10 customer's join columns: c_customer_sk 1..rows and
+    c_customer_id, neither null (the join key and TPC-DS's business
+    key)."""
+    sk = np.arange(1, rows + 1, dtype=np.int64)
+    return [sk, customer_ids(sk)], [np.ones(rows, bool), np.ones(rows, bool)]
+
+
+def make_q01_join(rcols, rvalid, K):
+    """The rows q01's sort-merge join emits at SF 10, from phase 12's
+    store_returns in numpy: ctr = Sum of sr_return_amt by (customer,
+    store), each store's threshold 1.2 x its mean ctr, the rows with ctr
+    > threshold (a null store matches no threshold), inner-joined to
+    customer (a null customer matches none).  Returns the 7 columns, all
+    valid, in the 4 hash partitions of c_customer_sk and sorted by
+    customer within each, and the partitions' row offsets."""
+    cust, store, amt = rcols
+    cv, sv, av = rvalid
+    width = SF10_STORES + 2
+    pair, inv = np.unique(np.where(cv, cust, -1) * width +
+                          np.where(sv, store, -1) + 1, return_inverse=True)
+    ctr = np.bincount(inv, weights=np.where(av, amt, 0.0))
+    has = np.bincount(inv, weights=av) > 0
+    p_cust, p_store = pair // width, pair % width - 1
+    stores, sinv = np.unique(p_store, return_inverse=True)
+    n = np.bincount(sinv, weights=has)
+    threshold = 1.2 * (np.bincount(sinv, weights=np.where(has, ctr, 0.0)) /
+                       np.maximum(n, 1))[sinv]
+    keep = has & (p_store >= 0) & (n[sinv] > 0) & (p_cust >= 0) & \
+        (ctr > threshold)
+    c, st = p_cust[keep], p_store[keep]
+    pid = K.hash_partition_ids_i64_plain(
+        torch.from_numpy(c), torch.ones(len(c), dtype=torch.bool),
+        N_AGG_PARTS).numpy()
+    order = np.lexsort((c, pid))
+    offsets = np.searchsorted(pid[order], np.arange(N_AGG_PARTS + 1))
+    data = [c, st, ctr[keep], st, threshold[keep], c]
+    cols = [d[order] for d in data]
+    cols.append(customer_ids(cols[0]))
+    return cols, [np.ones(len(c), bool)] * len(cols), offsets
+
+
+def _string_key_pool(rng):
+    """STRING_KEY_VALUES distinct keys of 0..STRING_KEY_MAX_BYTES UTF-8
+    bytes: the edge cases (the empty string, keys apart only by a
+    trailing NUL, non-ASCII first bytes), then random strings, half of
+    them at most 8 bytes.  Returns (keys, whether each is <= 8 bytes)."""
+    keys = ["", "ab", "ab\x00", "\x00", "\x00\x00", "é", "ÿ", "日本",
+            "abcdefgh", "abcdefgh\x00", "\x80", "\U0001f600"]
+    seen = set(keys)
+    while len(keys) < STRING_KEY_VALUES:
+        limit = 8 if len(keys) % 2 else STRING_KEY_MAX_BYTES
+        s = "".join(rng.choice(STRING_KEY_CHARS, rng.integers(0, limit + 1)))
+        while len(s.encode()) > limit:
+            s = s[:-1]
+        if s not in seen:
+            seen.add(s)
+            keys.append(s)
+    short = np.array([len(k.encode()) <= 8 for k in keys])
+    return _objects(keys), short
+
+
+def make_string_keys(seed: int, n: int = STRING_KEY_ROWS):
+    """n rows of (k, v): k from the key pool, v int64 in [-1000, 1000),
+    each with NULL_FRACTION nulls.  Scan batch j draws only keys of at
+    most 8 bytes when j is even or lies in map task 0, from every key
+    otherwise, so batches of width 8 and of wider buckets alternate and
+    map task 0's partial states are 8 bytes wide."""
+    from auron_tpu_torch.config import conf
+    rng = np.random.default_rng([seed, 18])
+    keys, short = _string_key_pool(rng)
+    short_ids = np.flatnonzero(short)
+    bs = int(conf.get("auron.batch.size"))
+    batch = np.arange(n) // bs
+    narrow = (batch % 2 == 0) | (np.arange(n) < n // N_AGG_PARTS)
+    kid = np.where(narrow, short_ids[rng.integers(0, len(short_ids), n)],
+                   rng.integers(0, len(keys), n))
+    return ([keys[kid], rng.integers(-1000, 1000, n, dtype=np.int64)],
+            [rng.random(n) >= NULL_FRACTION for _ in range(2)])
+
+
+def spark_hash_bytes(b: bytes, seed: int = SPARK_HASH_SEED) -> int:
+    """Spark's Murmur3_x86_32.hashUnsafeBytes of b, in plain Python: the
+    4-byte little-endian blocks, then each tail byte as a signed byte,
+    then fmix with the length; the int32 result."""
+    m32 = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & m32
+
+    def mix(h, k):
+        k = rotl((k * 0xCC9E2D51) & m32, 15) * 0x1B873593 & m32
+        return (rotl(h ^ k, 13) * 5 + 0xE6546B64) & m32
+    h = seed & m32
+    n4 = len(b) // 4 * 4
+    for i in range(0, n4, 4):
+        h = mix(h, int.from_bytes(b[i:i + 4], "little"))
+    for x in b[n4:]:
+        h = mix(h, (x - 256 if x >= 128 else x) & m32)
+    h ^= len(b)
+    h = (h ^ (h >> 16)) * 0x85EBCA6B & m32
+    h = (h ^ (h >> 13)) * 0xC2B2AE35 & m32
+    h ^= h >> 16
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def _run_take_ordered(name, maps_fn, n_maps, plans, svc_ids, dev, K):
+    """Stage 1 (n_maps tasks of maps_fn) into its exchange, then the
+    take-ordered's stage 2 (one task per partition -> single) and stage
+    3.  Returns (stage-3 output, launches by stage, results by stage,
+    seconds by stage)."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    s1, s2, s3 = plans
+    svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
+    sid1, sid2 = svc_ids
+    K.reset_launches()
+    maps1, t1, blocks1 = run_shuffle_stage(s1, svc1, sid1, n_maps,
+                                           lambda m: maps_fn(m, svc1))
+    after1 = dict(K.LAUNCHES)
+    maps2, t2, blocks2 = run_shuffle_stage(
+        s2, svc2, sid2, len(blocks1),
+        lambda p: reduce_task(s2, blocks1, 2, p, dev,
+                              svc2.rss_writer(sid2, p)))
+    after2 = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    out = reduce_task(s3, blocks2, 3, 0, dev).to_numpy()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter() - t
+    if dict(K.LAUNCHES) != after2:
+        raise AssertionError(f"{name} stage 3 launched a kernel")
+    return out, (after1, _stage_launches(after1, after2)), (maps1, maps2), \
+        (t1, t2, t3)
+
+
+def run_q09c(cols, valid, dev, K, card: str):
+    """Phase 16: q09c whole over the store_sales rows' (ss_quantity,
+    ss_sales_price) (8 map tasks).  Returns the 3 rows, the path's
+    launches and its kernel shapes."""
+    def maps(m, svc):
+        return map_task(m, cols, valid, svc, dev, plans[0], "q09c_agg")
+    plans = q09c_plans()
+    out, (l1, l2), (m1, m2), (t1, t2, t3) = _run_take_ordered(
+        "q09c", maps, N_MAPS, plans, ("q09c_agg", "q09c_top"), dev, K)
+    pushed1, shapes1 = check_stage("q09c stage 1", l1, m1, N_AGG_PARTS,
+                                   hash_pid=False)
+    pushed2, shapes2 = check_stage("q09c stage 2", l2, m2, 1, hash_pid=False)
+    print(f"phase 16: q09c stage 1 (band CASE -> partial count, avg by the "
+          f"string band -> hash(4)) {t1:.3f} s ({len(cols[0]) / t1:.0f} "
+          f"rows/s), stage 2 (final -> sort fetch 10 -> single) {t2:.4f} s, "
+          f"stage 3 {t3:.4f} s; stage 1: {pushed1} map-side batches = "
+          f"{l1['radix_bucket_hist']} radix-hist (b = 2), 0 hash-pid (a "
+          f"string key); stage 2: {pushed2} = {l2['radix_bucket_hist']} "
+          f"radix-hist (b = 1) | {card}")
+    return out, _sum_launches(l1, l2), shapes1 + shapes2
+
+
+def _sum_launches(*parts):
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def check_q09c(out, cols, valid):
+    """Three rows in band order, each band's Count of valid prices exact
+    and its Average to relative 1e-9 against numpy; a null quantity fails
+    both conditions and lands in "61-100".  Returns the counts."""
+    qty, price = cols
+    qv, pv = valid
+    band = np.where(qv & (qty <= 20), 0, np.where(qv & (qty <= 60), 1, 2))
+    cnt = np.bincount(band, weights=pv, minlength=3).astype(np.int64)
+    avg = np.bincount(band, weights=np.where(pv, price, 0.0),
+                      minlength=3) / cnt
+    (b, bv), (c, cv), (a, avv) = (out[k] for k in ("band", "cnt",
+                                                   "avg_price"))
+    if list(b) != ["1-20", "21-60", "61-100"] or not (bv.all() and cv.all()
+                                                     and avv.all()):
+        raise AssertionError(f"q09c: bands {list(b)}, want the three")
+    if not np.array_equal(c, cnt) or \
+            np.any(np.abs(a - avg) > 1e-9 * np.abs(avg)):
+        raise AssertionError(f"q09c: counts {c} / averages {a} differ from "
+                             f"numpy {cnt} / {avg}")
+    return cnt.tolist()
+
+
+def run_q41d(icols, ivalid, dev, K, card: str):
+    """Phase 16: q41d whole over SF-10 item (one map task)."""
+    def maps(m, svc):
+        return map_task(m, icols, ivalid, svc, dev, plans[0], "q41d_agg",
+                        "item", 1)
+    plans = q41d_plans()
+    out, (l1, l2), (m1, m2), (t1, t2, t3) = _run_take_ordered(
+        "q41d", maps, 1, plans, ("q41d_agg", "q41d_top"), dev, K)
+    pushed1, shapes1 = check_stage("q41d stage 1", l1, m1, N_AGG_PARTS,
+                                   hash_pid=False)
+    pushed2, shapes2 = check_stage("q41d stage 2", l2, m2, 1, hash_pid=False)
+    print(f"phase 16: q41d stage 1 (filter -> partial count by (i_brand, "
+          f"i_class) -> hash(4) on both strings) {t1:.3f} s, stage 2 (4 "
+          f"tasks: final -> sort fetch 100 -> single) {t2:.4f} s, stage 3 "
+          f"{t3:.4f} s; {pushed1} + {pushed2} map-side batches = "
+          f"{l1['radix_bucket_hist']} + {l2['radix_bucket_hist']} radix-hist, "
+          f"0 hash-pid | {card}")
+    return out, _sum_launches(l1, l2), shapes1 + shapes2
+
+
+def check_q41d(out, icols, ivalid):
+    """The first 100 (i_brand, i_class) groups of the rows with 30 <=
+    price <= 70, nulls first, then by bytes, as Python sorts them.
+    Returns the number of groups."""
+    brand, cls, price = icols
+    bv, cv, pv = ivalid
+    kept = np.flatnonzero(pv & (price >= 30.0) & (price <= 70.0))
+    groups = {(brand[i] if bv[i] else None, cls[i] if cv[i] else None)
+              for i in kept.tolist()}
+
+    def key(g):
+        return tuple((0, b"") if v is None else (1, v.encode()) for v in g)
+    exp = sorted(groups, key=key)[:100]
+    (b, bvo), (c, cvo) = out["i_brand"], out["i_class"]
+    got = [(x if xv else None, y if yv else None)
+           for x, xv, y, yv in zip(b, bvo, c, cvo)]
+    if got != exp:
+        raise AssertionError(f"q41d: {len(got)} rows differ from Python's "
+                             f"first 100 of {len(groups)} groups")
+    return len(groups)
+
+
+def run_q01_customer(ccols, cvalid, dev, K, card: str):
+    """Phase 17: q01's customer exchange (2 map tasks into hash(4) by
+    c_customer_sk).  Returns the blocks, launches and kernel shapes."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    plan = q01_customer_plan()
+    svc = InProcessShuffleService()
+    K.reset_launches()
+    maps, secs, blocks = run_shuffle_stage(
+        plan, svc, "customer", N_CUSTOMER_MAPS,
+        lambda m: map_task(m, ccols, cvalid, svc, dev, plan, "customer",
+                           "customer", N_CUSTOMER_MAPS))
+    launches = dict(K.LAUNCHES)
+    pushed, shapes = check_stage("q01 customer exchange", launches, maps,
+                                 N_AGG_PARTS, hash_pid=True,
+                                 scan_batch=SCAN_BATCH)
+    print(f"phase 17: q01 customer exchange (scan -> hash(4) by "
+          f"c_customer_sk, c_customer_id carried) {secs:.3f} s "
+          f"({len(ccols[0]) / secs:.0f} rows/s), {pushed} map-side batches "
+          f"= {launches['hash_partition_ids_i64']} hash-pid = "
+          f"{launches['radix_bucket_hist']} radix-hist launches (b = 2) "
+          f"| {card}")
+    return blocks, launches, shapes
+
+
+def check_q01_customer(blocks, ccols, K) -> list:
+    """Every customer once, in partition pmod(murmur3(sk), 4) of the
+    plain version, its c_customer_id intact; rows per partition as
+    numpy counts them.  Returns the rows per partition."""
+    sk = ccols[0]
+    pid = K.hash_partition_ids_i64_plain(
+        torch.from_numpy(sk), torch.ones(len(sk), dtype=torch.bool),
+        N_AGG_PARTS).numpy()
+    want = np.bincount(pid, minlength=N_AGG_PARTS).tolist()
+    got, seen = [], []
+    for p, part in enumerate(blocks):
+        ks = [b.to_numpy() for b in part]
+        k = np.concatenate([x[0][0] for x in ks])
+        ids = np.concatenate([x[0][1] for x in ks])
+        if not all(x[1][0].all() and x[1][1].all() for x in ks):
+            raise AssertionError("q01 customer: a null came out")
+        if np.any(pid[k - 1] != p):
+            raise AssertionError(f"q01 customer: partition {p} holds a key "
+                                 f"of another partition")
+        if list(ids) != list(customer_ids(k)):
+            raise AssertionError(f"q01 customer: partition {p} changed a "
+                                 f"c_customer_id")
+        got.append(len(k))
+        seen.append(k)
+    if got != want or not np.array_equal(np.sort(np.concatenate(seen)), sk):
+        raise AssertionError(f"q01 customer: rows per partition {got}, "
+                             f"numpy {want}")
+    return got
+
+
+def _q01_key(cols, i):
+    """Spark's order of q01's take-ordered for join row i: c_customer_id
+    by bytes, sr_store_sk, ctr_total_return descending (none is null)."""
+    return (cols[6][i].encode(), cols[1][i], -cols[2][i])
+
+
+def run_q01_top(jcols, jvalid, offsets, dev, K, card: str):
+    """Phase 17: q01's take-ordered: one task per hash partition of the
+    join's rows (`offsets`) into the single exchange, then the last
+    task.  Returns its output, the exchange's blocks, the launches and
+    the kernel shapes."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    stage, top = q01_top_plans()
+    svc = InProcessShuffleService()
+    K.reset_launches()
+    maps, t1, blocks = run_shuffle_stage(
+        stage, svc, "q01_top", N_AGG_PARTS,
+        lambda m: map_task(m, jcols, jvalid, svc, dev, stage, "q01_top",
+                           "join", split=(int(offsets[m]),
+                                          int(offsets[m + 1]))))
+    after = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    out = reduce_task(top, blocks, 3, 0, dev).to_numpy()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter() - t
+    if dict(K.LAUNCHES) != after:
+        raise AssertionError("q01 take-ordered's last task launched a "
+                             "kernel")
+    pushed, shapes = check_stage("q01 take-ordered", after, maps, 1,
+                                 hash_pid=False)
+    print(f"phase 17: q01 take-ordered of {len(jcols[0])} join rows: 4 tasks "
+          f"(sort fetch 100 by (c_customer_id, sr_store_sk, ctr desc) -> "
+          f"single) {t1:.3f} s ({len(jcols[0]) / t1:.0f} rows/s), last task "
+          f"(sort fetch 100 -> project) {t2:.4f} s; {pushed} map-side "
+          f"batches = {after['radix_bucket_hist']} radix-hist (b = 1), 0 "
+          f"hash-pid | {card}")
+    return out, blocks, after, shapes
+
+
+def check_q01_top(out, blocks, jcols, offsets):
+    """Each task's block holds the first 100 rows of its partition, all
+    seven columns, and the last task's c_customer_id list is the first
+    100 of all rows, as Python sorts them."""
+    import heapq
+    names = [n for n, _ in Q01_JOIN]
+    for p, b in enumerate(blocks[0]):
+        lo, hi = int(offsets[p]), int(offsets[p + 1])
+        top = heapq.nsmallest(100, range(lo, hi),
+                              key=lambda i: _q01_key(jcols, i))
+        vals, _ = b.to_numpy()
+        for ci, name in enumerate(names):
+            if list(vals[ci]) != [jcols[ci][i] for i in top]:
+                raise AssertionError(f"q01 take-ordered: task {p}'s "
+                                     f"{name} differs from Python's sort")
+    top = heapq.nsmallest(100, range(len(jcols[0])),
+                          key=lambda i: _q01_key(jcols, i))
+    ids, idv = out["c_customer_id"]
+    if not idv.all() or list(ids) != [jcols[6][i] for i in top]:
+        raise AssertionError("q01 take-ordered: the top 100 c_customer_id "
+                             "differ from Python's sort")
+    return ids[0], ids[-1]
+
+
+def run_string_keys(scols, svalid, dev, K, card: str):
+    """Phase 18: the string-key group-by (4 map tasks into hash(4) on the
+    key, 4 reduce tasks).  Returns the reduce outputs per partition,
+    launches and kernel shapes."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    mplan, rplan = string_key_plans()
+    svc = InProcessShuffleService()
+    K.reset_launches()
+    maps, t1, blocks = run_shuffle_stage(
+        mplan, svc, "strings", N_AGG_PARTS,
+        lambda m: map_task(m, scols, svalid, svc, dev, mplan, "strings",
+                           "strings", N_AGG_PARTS))
+    widths = sorted({b.columns[0].width for part in blocks for b in part})
+    t = time.perf_counter()
+    outs = [reduce_task(rplan, blocks, 2, p, dev).to_numpy()
+            for p in range(len(blocks))]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    pushed, shapes = check_stage("string keys map", launches, maps,
+                                 N_AGG_PARTS, hash_pid=False)
+    if len(widths) < 2:
+        raise AssertionError(f"string keys: the reduce side got blocks of "
+                             f"one width {widths}, want several")
+    print(f"phase 18: string-key group-by of {len(scols[0])} rows: map "
+          f"{t1:.3f} s, reduce {t2:.4f} s (blocks {widths} bytes wide), "
+          f"{pushed} map-side batches = {launches['radix_bucket_hist']} "
+          f"radix-hist (b = 2), 0 hash-pid | {card}")
+    return outs, launches, shapes
+
+
+def check_string_keys(outs, scols, svalid) -> int:
+    """One group per key (one null group), each in partition
+    pmod(Spark's hashUnsafeBytes of the key, 4) (a null key: pmod(42,
+    4)), Count and Sum of the valid values exact, against Python.
+    Returns the groups."""
+    keys, v = scols
+    kv, vv = svalid
+    exp = {}
+    for k, ok, x, xok in zip(keys.tolist(), kv.tolist(), v.tolist(),
+                             vv.tolist()):
+        n, s = exp.get(k if ok else None, (0, None))
+        exp[k if ok else None] = (n + xok, (s or 0) + x if xok else s)
+    got = {}
+    for p, o in enumerate(outs):
+        (k, kok), (n, _), (s, sok) = o["k"], o["n"], o["s"]
+        for key, ok, cnt, sm, smok in zip(k.tolist(), kok.tolist(),
+                                          n.tolist(), s.tolist(),
+                                          sok.tolist()):
+            key = key if ok else None
+            h = SPARK_HASH_SEED if key is None else \
+                spark_hash_bytes(key.encode())
+            if h % N_AGG_PARTS != p:
+                raise AssertionError(f"string keys: {key!r} in partition "
+                                     f"{p}, Spark's is {h % N_AGG_PARTS}")
+            if key in got:
+                raise AssertionError(f"string keys: {key!r} formed two "
+                                     f"groups")
+            got[key] = (cnt, sm if smok else None)
+    if got != exp:
+        bad = [k for k in exp if got.get(k) != exp[k]]
+        raise AssertionError(f"string keys: {len(got)} groups, Python "
+                             f"{len(exp)}; first difference {bad[:1]!r}")
+    return len(got)
+
+
 def check_path_shapes(K, dev, rng, shapes) -> dict:
-    """Phase 15: each kernel at each (kernel, rows, n_parts) a path gave it, held
-    bit-exact against its plain version on fresh inputs: hash-pid on
-    int64 keys with 10% nulls, the histogram at the writer's padded
-    capacity and the writer's sizes against torch.bincount.  Returns the
-    largest difference (0) of each kernel."""
+    """Phase 15, run last: each kernel at each (kernel, rows, n_parts) a
+    path of phases 3-14 and 16-18 gave it, held bit-exact against its
+    plain version on fresh inputs: hash-pid on int64 keys with 10% nulls,
+    the histogram at the writer's padded capacity and the writer's sizes
+    against torch.bincount.  Returns the largest difference (0) of each
+    kernel."""
     from auron_tpu_torch.columnar.batch import bucket_capacity
     from auron_tpu_torch.ops.radix_sort import ceil_log2
     from auron_tpu_torch.ops.shuffle import writer as W
@@ -1743,8 +2361,8 @@ def check_path_shapes(K, dev, rng, shapes) -> dict:
         if err:
             raise AssertionError(f"phase 15: {kernel} != plain at n={n} "
                                  f"n_parts={n_parts}")
-    print(f"phase 15: every kernel shape of phases 3-14 bit-exact with its "
-          f"plain version, {len(done)} (kernel, rows, n_parts): "
+    print(f"phase 15: every kernel shape of phases 3-14 and 16-18 bit-exact "
+          f"with its plain version, {len(done)} (kernel, rows, n_parts): "
           f"{sorted(done)}")
     return worst
 
@@ -1950,7 +2568,7 @@ def main() -> int:
                  lambda: map_task(0, jcols, jvalid,
                                   InProcessShuffleService(), dev, s1,
                                   "q17m_agg", "join", N_AGG_PARTS), card)
-    del jcols, jvalid, rcols, rvalid, ridx
+    del jcols, jvalid, ridx
     fcols, fvalid = make_float_keys(args.seed,
                                     min(FLOAT_KEY_ROWS, args.rows))
     out, float_launches, path_shapes = run_float_keys(fcols, fvalid, dev,
@@ -1992,6 +2610,73 @@ def main() -> int:
         del icols, ivalid, kept
     print(f"phases 13-14: {time.perf_counter() - new_phases:.1f} s | {card}")
 
+    new_phases = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, q09c_launches, path_shapes = run_q09c(q88_cols, q88_valid, dev, K,
+                                               card)
+    shapes += path_shapes
+    print(f"phase 16: q09c's three bands equal to numpy (counts "
+          f"{check_q09c(out, q88_cols, q88_valid)}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    q09c_map = q09c_plans()[0]
+    profile_task("phase 16: q09c map task 0",
+                 lambda: map_task(0, q88_cols, q88_valid,
+                                  InProcessShuffleService(), dev, q09c_map,
+                                  "q09c"), card)
+    t = time.perf_counter()
+    icols, ivalid = make_item(args.seed)
+    print(f"phase 16: {len(icols[0])} item rows made in "
+          f"{time.perf_counter() - t:.2f} s")
+    out, q41d_launches, path_shapes = run_q41d(icols, ivalid, dev, K, card)
+    shapes += path_shapes
+    print(f"phase 16: q41d's {len(out['i_brand'][0])} rows (of "
+          f"{check_q41d(out, icols, ivalid)} groups, the null groups first) "
+          f"equal to Python's sort | {card}")
+    del icols, ivalid
+
+    t = time.perf_counter()
+    ccols, cvalid = make_customer()
+    print(f"phase 17: {len(ccols[0])} customer rows made in "
+          f"{time.perf_counter() - t:.2f} s")
+    blocks, customer_launches, path_shapes = run_q01_customer(
+        ccols, cvalid, dev, K, card)
+    shapes += path_shapes
+    print(f"phase 17: q01 customer rows per partition "
+          f"{check_q01_customer(blocks, ccols, K)} equal to numpy's, each "
+          f"in its Spark partition with its c_customer_id | {card}")
+    del blocks, ccols, cvalid
+    t = time.perf_counter()
+    jcols, jvalid, offsets = make_q01_join(rcols, rvalid, K)
+    print(f"phase 17: {len(jcols[0])} q01 join rows made in "
+          f"{time.perf_counter() - t:.2f} s (partitions of "
+          f"{np.diff(offsets).tolist()} rows)")
+    torch.cuda.reset_peak_memory_stats()
+    out, blocks, top_launches, path_shapes = run_q01_top(
+        jcols, jvalid, offsets, dev, K, card)
+    shapes += path_shapes
+    first, last = check_q01_top(out, blocks, jcols, offsets)
+    print(f"phase 17: q01's top 100 c_customer_id ({first} .. {last}) and "
+          f"each task's top 100 rows equal to Python's sort, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    top_stage = q01_top_plans()[0]
+    profile_task("phase 17: q01 take-ordered task 0",
+                 lambda: map_task(0, jcols, jvalid, InProcessShuffleService(),
+                                  dev, top_stage, "q01_top", "join",
+                                  split=(int(offsets[0]), int(offsets[1]))),
+                 card)
+    del jcols, jvalid, blocks, rcols, rvalid
+
+    scols, svalid = make_string_keys(args.seed,
+                                     min(STRING_KEY_ROWS, args.rows))
+    outs, string_launches, path_shapes = run_string_keys(scols, svalid, dev,
+                                                         K, card)
+    shapes += path_shapes
+    print(f"phase 18: {check_string_keys(outs, scols, svalid)} string-key "
+          f"groups (one null) equal to Python, each in Spark's partition of "
+          f"its key | {card}")
+    del scols, svalid, outs
+    print(f"phases 16-18: {time.perf_counter() - new_phases:.1f} s | {card}")
+
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
         max(hist_err, errs["hist"])
@@ -2011,7 +2696,12 @@ def main() -> int:
             "q01_stages": q01_launches["hash_partition_ids_i64"],
             "q17m_stages": q17m_launches["hash_partition_ids_i64"],
             "float_keys": float_launches["hash_partition_ids_i64"],
-            "q39v_stages": q39v_launches["hash_partition_ids_i64"]},
+            "q39v_stages": q39v_launches["hash_partition_ids_i64"],
+            "q09c": q09c_launches["hash_partition_ids_i64"],
+            "q41d": q41d_launches["hash_partition_ids_i64"],
+            "q01_customer": customer_launches["hash_partition_ids_i64"],
+            "q01_top": top_launches["hash_partition_ids_i64"],
+            "string_keys": string_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -2027,7 +2717,12 @@ def main() -> int:
             "q01_stages": q01_launches["radix_bucket_hist"],
             "q17m_stages": q17m_launches["radix_bucket_hist"],
             "float_keys": float_launches["radix_bucket_hist"],
-            "q39v_stages": q39v_launches["radix_bucket_hist"]},
+            "q39v_stages": q39v_launches["radix_bucket_hist"],
+            "q09c": q09c_launches["radix_bucket_hist"],
+            "q41d": q41d_launches["radix_bucket_hist"],
+            "q01_customer": customer_launches["radix_bucket_hist"],
+            "q01_top": top_launches["radix_bucket_hist"],
+            "string_keys": string_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
