@@ -338,6 +338,39 @@ def from_numpy(schema: Schema, arrays: Sequence[np.ndarray],
     return Batch(schema, cols, n, cap)
 
 
+def null_column(dtype: DataType, cap: int, dev: torch.device) -> Column:
+    """An all-null column of `dtype` (a string column at the narrowest
+    width bucket): an outer join's padding."""
+    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+    if dtype.is_stringlike:
+        return DeviceStringColumn(
+            dtype, torch.zeros((cap, bucket_width(1)), dtype=torch.uint8,
+                               device=dev),
+            torch.zeros(cap, dtype=torch.int32, device=dev), valid)
+    return DeviceColumn(dtype, torch.zeros(cap, dtype=dtype.torch_dtype(),
+                                           device=dev), valid)
+
+
+def empty_batch(schema: Schema, cap: int, dev: torch.device) -> Batch:
+    """A batch of no rows at capacity `cap`."""
+    return Batch(schema, [null_column(f.dtype, cap, dev) for f in schema],
+                 0, cap)
+
+
+def concat_device_columns(parts: List[Column]) -> Column:
+    """One logical column's parts, every row of each (padding included),
+    concatenated: the device concat of an uncompacted stream, whose rows
+    a separate live mask marks.  String parts are padded to the widest."""
+    if isinstance(parts[0], DeviceStringColumn):
+        w = max(p.width for p in parts)
+        return DeviceStringColumn(
+            parts[0].dtype, torch.cat([p.widened(w) for p in parts]),
+            torch.cat([p.lengths for p in parts]),
+            torch.cat([p.validity for p in parts]))
+    return DeviceColumn(parts[0].dtype, torch.cat([p.data for p in parts]),
+                        torch.cat([p.validity for p in parts]))
+
+
 def concat_batches(schema: Schema, batches: List[Batch],
                    capacity: Optional[int] = None) -> Batch:
     """Live rows of `batches`, in order, in one padded batch."""

@@ -125,3 +125,21 @@ conf.define(
 conf.define(
     "auron.kernel.sort.radix.min.rows", 1 << 15,
     "Capacity below which 'auto' keeps the argsort form.")
+conf.define(
+    "auron.smj.streaming.enable", True,
+    "Execute sort-merge joins as a merge of the sorted inputs, window by "
+    "frontier window (ops/joins/smj.py), instead of materializing the "
+    "build side whole.")
+conf.define(
+    "auron.smj.window.max.rows", 1 << 20,
+    "Cap on the build rows one streaming-SMJ window may materialize.  A "
+    "window past it that holds a single key escapes, in the JAX package, "
+    "to a giant-group join that spills to storage; the port has no spill "
+    "yet and raises there.  Windows of several keys keep the normal "
+    "path.  0 disables the cap.")
+conf.define(
+    "auron.kernel.join.probe.strategy", "auto",
+    "Hash-join probe: 'searchsorted' = the double searchsorted over the "
+    "build side's sorted key hashes; 'partitioned' = the JAX package's "
+    "bucket-partitioned probe index, not in the port yet (raises); "
+    "'auto' = searchsorted on every device of the port.")

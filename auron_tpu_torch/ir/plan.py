@@ -1,7 +1,8 @@
 """Physical plan IR nodes (counterpart of auron_tpu/ir/plan.py).
 
 The nodes of the port's stages: the FFI and IPC readers, projection,
-filter, limit, aggregation, sort, the RSS shuffle writer with its
+filter, limit, aggregation, sort, the joins (sort-merge, shuffled hash,
+broadcast and its build-map stage), the RSS shuffle writer with its
 partitioning, and the `TaskDefinition` a front end ships.  Fields and
 `kind` tags are the JAX package's, so their JSON is the same.
 """
@@ -102,6 +103,63 @@ class Sort(PlanNode):
     sort_exprs: Tuple[SortExpr, ...] = ()
     fetch_limit: Optional[int] = None
     fetch_offset: int = 0
+
+
+@register
+@dataclass(frozen=True)
+class JoinOn(Node):
+    kind: ClassVar[str] = "join_on"
+    left_keys: Tuple[Expr, ...] = ()
+    right_keys: Tuple[Expr, ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class SortMergeJoin(PlanNode):
+    kind: ClassVar[str] = "sort_merge_join"
+    left: PlanNode = None  # type: ignore[assignment]
+    right: PlanNode = None  # type: ignore[assignment]
+    on: JoinOn = None  # type: ignore[assignment]
+    join_type: str = "inner"
+    sort_options: Tuple[Tuple[bool, bool], ...] = ()   # (asc, nulls_first) per key
+    existence_output_name: str = "exists"
+
+
+@register
+@dataclass(frozen=True)
+class HashJoin(PlanNode):
+    """Shuffled hash join (both sides partitioned by key)."""
+    kind: ClassVar[str] = "hash_join"
+    left: PlanNode = None  # type: ignore[assignment]
+    right: PlanNode = None  # type: ignore[assignment]
+    on: JoinOn = None  # type: ignore[assignment]
+    join_type: str = "inner"
+    build_side: str = "right"
+    existence_output_name: str = "exists"
+
+
+@register
+@dataclass(frozen=True)
+class BroadcastJoinBuildHashMap(PlanNode):
+    """Builds the broadcast hash map once per device from the broadcast
+    batches."""
+    kind: ClassVar[str] = "broadcast_join_build_hash_map"
+    child: PlanNode = None  # type: ignore[assignment]
+    keys: Tuple[Expr, ...] = ()
+    cache_id: str = ""
+
+
+@register
+@dataclass(frozen=True)
+class BroadcastJoin(PlanNode):
+    kind: ClassVar[str] = "broadcast_join"
+    left: PlanNode = None  # type: ignore[assignment]
+    right: PlanNode = None  # type: ignore[assignment]
+    on: JoinOn = None  # type: ignore[assignment]
+    join_type: str = "inner"
+    broadcast_side: str = "right"
+    cached_build_hash_map_id: str = ""
+    existence_output_name: str = "exists"
 
 
 @register

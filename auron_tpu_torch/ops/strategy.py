@@ -1,5 +1,5 @@
-"""Kernel-strategy selection for sorts (counterpart of
-auron_tpu/ops/strategy.py; `sort_strategy` only).
+"""Kernel-strategy selection for sorts and join probes (counterpart of
+auron_tpu/ops/strategy.py; `sort_strategy` and `join_probe_strategy`).
 
 `auron.kernel.sort.strategy` picks the argsort family of the encoded
 sort-key sorts.  Where the JAX package resolves 'auto' by
@@ -42,3 +42,22 @@ def sort_strategy(capacity: int, n_words: int = 1,
     est_radix = 2.0 * n_words * PACKSORT_PASS_NS
     est_argsort = n_words * ARGSORT_NS
     return "radix" if est_radix < est_argsort else "argsort"
+
+
+def join_probe_strategy() -> str:
+    """'searchsorted' for a hash-join probe (ops/joins/kernel.py).
+
+    The JAX package resolves 'auto' to searchsorted on a GPU and to its
+    bucket-partitioned probe index (`kernel.py::ProbeIndex`) on the CPU
+    backend; both give the same (lo, counts).  The port resolves 'auto'
+    to searchsorted on every device: the partitioned index is not in the
+    port yet, and forcing it raises."""
+    mode = str(conf.get("auron.kernel.join.probe.strategy"))
+    if mode == "partitioned":
+        raise NotImplementedError(
+            "auron.kernel.join.probe.strategy=partitioned: the "
+            "bucket-partitioned probe index (ProbeIndex, build_probe_index, "
+            "bounded_probe) is not in auron_tpu_torch yet")
+    if mode not in ("auto", "searchsorted"):
+        raise ValueError(f"unknown join probe strategy {mode!r}")
+    return "searchsorted"

@@ -10,6 +10,10 @@ from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ops.agg.exec import AggExec
 from auron_tpu_torch.ops.base import Operator
 from auron_tpu_torch.ops.basic import FilterExec, LimitExec, ProjectExec
+from auron_tpu_torch.ops.joins import (
+    BroadcastJoinBuildHashMapExec, BroadcastJoinExec, HashJoinExec,
+    SortMergeJoinExec,
+)
 from auron_tpu_torch.ops.scan.ipc import FFIReaderExec, IpcReaderExec
 from auron_tpu_torch.ops.shuffle.writer import RssShuffleWriterExec
 from auron_tpu_torch.ops.sort import SortExec
@@ -35,6 +39,19 @@ class PhysicalPlanner:
             "rss_shuffle_writer": lambda n: RssShuffleWriterExec(
                 self.create_plan(n.child), n.partitioning,
                 n.rss_resource_id),
+            "sort_merge_join": lambda n: SortMergeJoinExec(
+                self.create_plan(n.left), self.create_plan(n.right), n.on,
+                n.join_type, n.sort_options, n.existence_output_name),
+            "hash_join": lambda n: HashJoinExec(
+                self.create_plan(n.left), self.create_plan(n.right), n.on,
+                n.join_type, n.build_side, n.existence_output_name),
+            "broadcast_join": lambda n: BroadcastJoinExec(
+                self.create_plan(n.left), self.create_plan(n.right), n.on,
+                n.join_type, n.broadcast_side, n.cached_build_hash_map_id,
+                n.existence_output_name),
+            "broadcast_join_build_hash_map": lambda n:
+                BroadcastJoinBuildHashMapExec(self.create_plan(n.child),
+                                              n.keys, n.cache_id),
         }
 
     def _projection(self, n: P.Projection) -> Operator:

@@ -71,27 +71,33 @@ the sources in this checkout.  Phases, each fatal on failure:
     on every writer's batch (b = 2, then b = 1) and hash-pid on every
     batch of the single-key hash(2) writer; profile one stage-1 map task;
     print the seconds phases 10-12 took;
-13. run q17m above its sort-merge join as the converter lowers it, fed
-    the join's 2,875,432 output rows (one per store_returns row of phase
-    12, the sale it was sampled from): 4 map tasks (partial Min, Max,
-    Average, Count by ss_store_sk -> hash(4)), 4 tasks (final -> Sort
-    fetch 100 -> single partition), 1 task (Sort fetch 100 ->
-    Projection); check the 100 rows against numpy and hash-pid and the
-    histogram on every hash(4) batch, the histogram alone on the single
-    writer's; profile one map task; then a group-by of 2^20 rows by a
-    float64 key holding -0.0, 0.0, +-inf and NaNs of both signs and
-    several payloads (Count, Min, Max, first_ignores_null of a float64
-    value) through hash(4), checked against numpy under Spark's
-    normalization; First and first_ignores_null under both sort forms;
-    sorted_segment_min / max on the card against the CPU for every type;
-14. run q39v's month_stats above its broadcast join for January and
-    February 2000, fed the join's rows (4 weekly snapshots of 510,000
-    (item, warehouse) pairs a month): 4 map tasks (partial Average and
-    StddevSamp of cast(qty as double) by (warehouse, item) -> hash(4) on
-    both keys), 4 tasks (final -> rename -> Filter sdev / mean > 0.4 ->
-    hash(4)); check the kept groups, their means and sdevs against
-    numpy, the histogram on every writer batch and no hash-pid (two
-    keys); profile one map task; print the seconds phases 13-14 took;
+13. run TPC-DS q17m whole as the converter lowers it, each stage through
+    `execute_task_bytes` (`JoinQuery`): store_sales with ticket (the row
+    number), item, store and quantity for all rows (8 tasks -> hash(4)
+    on (ticket, item)), store_returns (4 tasks -> hash(4)), 4 sort-merge
+    join tasks (Sort, Sort -> SortMergeJoin on two keys -> partial Min,
+    Max, Average, Count by ss_store_sk -> hash(4)), 4 tasks (final ->
+    Sort fetch 100 -> single), 1 task (Sort fetch 100 -> Projection);
+    check that the join's rows number one per store_returns row, the 100
+    rows against numpy, the histogram on every writer batch and hash-pid
+    on every batch of the one-key exchange; profile one sort-merge join
+    task; then a group-by of 2^20 rows by a float64 key holding -0.0,
+    0.0, +-inf and NaNs of both signs and several payloads (Count, Min,
+    Max, first_ignores_null of a float64 value) through hash(4),
+    checked against numpy under Spark's normalization; First and
+    first_ignores_null under both sort forms; sorted_segment_min / max
+    on the card against the CPU for every type;
+14. run q39v whole: for January and February 2000 a broadcast of the
+    month's rows of date_dim (73,049 rows, Filter d_moy, d_year), a
+    broadcast join of the inventory snapshots of January to March 2000
+    (13 weekly snapshots of 510,000 (item, warehouse) pairs, 4 tasks)
+    against it -> partial Average and StddevSamp -> hash(4) on two keys,
+    4 tasks (final -> rename -> Filter sdev / mean > 0.4 -> hash(4));
+    then 4 sort-merge join tasks of the two months' kept groups -> Sort
+    fetch 100 -> single, and the root; check each month's kept groups,
+    means and sdevs against numpy, the root's 100 rows against the kept
+    groups joined in Python, the histogram on every writer batch and no
+    hash-pid (two keys); print the seconds phases 13-14 took;
 15. (run last) hold each kernel bit-exact against its plain version at
     every (rows, n_parts) the writers of phases 3-14 and 16-18 gave it,
     as their metrics report them;
@@ -106,20 +112,30 @@ the sources in this checkout.  Phases, each fatal on failure:
     on both strings; 4 tasks: final -> Sort fetch 100 -> single; 1
     task), its 100 rows (of 171 groups, the null ones first) against
     Python's sort; profile one q09c map task;
-17. run q01's customer exchange (SF-10 customer, 500,000 rows, 2 map
-    tasks: FFIReader -> hash(4) by c_customer_sk, the c_customer_id
-    strings carried: hash-pid on batches that carry a string) and q01's
-    take-ordered above its sort-merge join, fed the join's rows computed
-    in numpy from phase 12's store_returns, one task per hash partition
-    (Sort fetch 100 by (c_customer_id, sr_store_sk, ctr_total_return
-    DESC) -> single; Sort fetch 100 -> Projection(c_customer_id));
-    check every customer in its Spark partition with its id intact, and
-    the top 100 against Python's sort; profile one take-ordered task;
+17. run TPC-DS q01 whole over phase 12's store_returns and SF-10
+    customer (500,000 rows, c_customer_id strings): two scans -> partial
+    Sum -> hash(4); final Sum -> partial Average -> hash(2); the
+    broadcast of the thresholds; final Sum -> BroadcastJoin (a build-map
+    stage over the broadcast, built once for the stage's 4 tasks) ->
+    Filter -> hash(4) by sr_customer_sk; the customer scan -> hash(4);
+    4 sort-merge join tasks -> Sort fetch 100 by (c_customer_id,
+    sr_store_sk, ctr_total_return DESC) -> single; Sort fetch 100 ->
+    Projection; check the thresholds, the broadcast join's rows, every
+    customer in its Spark partition with its id intact, each task's top
+    100 and the top 100 c_customer_id against numpy and Python's sort;
 18. run a group-by of 2^20 rows by 1,000 string keys of 0-40 UTF-8 bytes
     (the empty string, keys apart only by a trailing NUL, non-ASCII
     first bytes), batches of width 8 alternating with wider ones: Count
     and Sum through hash(4), checked against Python, each group in
-    pmod(Spark's hashUnsafeBytes, 4) computed in plain Python.
+    pmod(Spark's hashUnsafeBytes, 4) computed in plain Python;
+19. run every join type (inner, left, right, full, left and right semi
+    and anti, existence) through BroadcastJoin (on the sides the JAX
+    package's plan verifier lets it build), HashJoin built on each side
+    and SortMergeJoin streaming and whole-side, over two sides of 2^16
+    rows (~16 rows a key, an eighth of the keys unmatched, nulls, a
+    string payload), probe batches spanning many pair chunks, and with
+    an empty build side; check each against the port's own run on the
+    CPU row for row and numpy's row count.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -127,6 +143,7 @@ as the last line, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -869,12 +886,14 @@ def time_reduce_sort(svc, dev, card: str):
 
 
 def profile_sort_tasks(cols, valid, svc, plans, dev, card: str) -> None:
-    """Phase 9: one sort map task and one sort reduce task."""
+    """Phase 9: a quarter of sort map task 0 (the first of 32 splits:
+    reading a whole task's trace took 112-168 s on an H100) and one sort
+    reduce task."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     scratch = InProcessShuffleService()
-    profile_task("phase 9: sort map task 0",
+    profile_task("phase 9: sort map task 0, its first quarter",
                  lambda: map_task(0, cols, valid, scratch, dev, plans[0],
-                                  "sort"), card)
+                                  "sort", n_maps=4 * N_MAPS), card)
     profile_task("phase 9: sort reduce task 0",
                  lambda: sort_reduce_task(0, svc, plans[1], dev), card)
 
@@ -1297,25 +1316,6 @@ def q39v_plans(moy: int):
     return stage1, stage2
 
 
-def make_q17m_join(cols, valid, rcols, rvalid, ridx, seed: int):
-    """The rows of q17m's sort-merge join at SF 10: one per store_returns
-    row of phase 12, each matching the sale it was sampled from on
-    (ticket, item) as `it/datagen.py` builds them.  The ticket is the
-    sale's row number + 1 (never null), the item uniform over the SF-10
-    items from a generator of its own, ss_store_sk and sr_return_amt
-    phase 12's, ss_quantity the sale's; in ticket order, as the join
-    emits them."""
-    rng = np.random.default_rng([seed, 17])
-    n = len(ridx)
-    ticket = ridx.astype(np.int64) + 1
-    item = rng.integers(1, SF10_ITEMS + 1, n, dtype=np.int64)
-    order = np.argsort(ticket, kind="stable")
-    ones = np.ones(n, bool)
-    data = [ticket, item, rcols[1], cols[1][ridx], ticket, item, rcols[2]]
-    val = [ones, ones, rvalid[1], valid[1][ridx], ones, ones, rvalid[2]]
-    return [d[order] for d in data], [v[order] for v in val]
-
-
 def inventory_dates(moy: int) -> np.ndarray:
     """The weekly inventory snapshots of month `moy` of 2000 on
     `it/datagen.py`'s grid: d_date_sk 2450815 is 1998-01-01, years of 365
@@ -1348,48 +1348,6 @@ def make_inventory_month(moy: int, seed: int, items: int = INV_ITEMS):
              np.full(n, 2000, np.int32)],
             [ones, ones, ones, rng.random(n) >= NULL_FRACTION, ones, ones,
              ones])
-
-
-def run_q17m(jcols, jvalid, dev, K, card: str):
-    """Phase 13: q17m's three stages above the join.  Returns the
-    stage-3 output, the path's launches and the kernel shapes (kernel,
-    rows, n_parts) the writers gave the kernels."""
-    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
-    s1, s2, s3 = q17m_plans()
-    svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
-    K.reset_launches()
-    maps1, t1, blocks1 = run_shuffle_stage(
-        s1, svc1, "q17m_agg", N_AGG_PARTS,
-        lambda m: map_task(m, jcols, jvalid, svc1, dev, s1, "q17m_agg",
-                           "join", N_AGG_PARTS))
-    after1 = dict(K.LAUNCHES)
-    maps2, t2, blocks2 = run_shuffle_stage(
-        s2, svc2, "q17m_top", len(blocks1),
-        lambda p: reduce_task(s2, blocks1, 2, p, dev,
-                              svc2.rss_writer("q17m_top", p)))
-    after2 = dict(K.LAUNCHES)
-    t = time.perf_counter()
-    out = reduce_task(s3, blocks2, 3, 0, dev).to_numpy()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter() - t
-    launches = dict(K.LAUNCHES)
-    pushed1, shapes1 = check_stage("q17m stage 1", after1, maps1,
-                                   N_AGG_PARTS, hash_pid=True)
-    pushed2, shapes2 = check_stage("q17m stage 2",
-                                   _stage_launches(after1, after2), maps2, 1,
-                                   hash_pid=False)
-    if launches != after2:
-        raise AssertionError("q17m stage 3 launched a kernel")
-    print(f"phase 13: q17m stage 1 (join rows -> partial min, max, avg, "
-          f"count -> hash(4)) {t1:.3f} s ({len(jcols[0]) / t1:.0f} rows/s), "
-          f"stage 2 (final -> sort fetch 100 -> single) {t2:.4f} s, stage 3 "
-          f"(sort fetch 100 -> project) {t3:.4f} s; stage 1: {pushed1} "
-          f"map-side batches = {after1['radix_bucket_hist']} radix-hist "
-          f"(b = 2) = {after1['hash_partition_ids_i64']} hash-pid launches; "
-          f"stage 2: {pushed2} = "
-          f"{after2['radix_bucket_hist'] - after1['radix_bucket_hist']} "
-          f"radix-hist (b = 1), 0 hash-pid | {card}")
-    return out, launches, shapes1 + shapes2
 
 
 def check_q17m(out, jcols, jvalid) -> int:
@@ -1427,49 +1385,6 @@ def check_q17m(out, jcols, jvalid) -> int:
             np.any(np.abs(a[avv] - exp[avv]) > 1e-9 * np.abs(exp[avv])):
         raise AssertionError("q17m: Average differs from numpy")
     return g
-
-
-def run_q39v_month(moy: int, icols, ivalid, dev, K, card: str):
-    """Phase 14: one month of q39v's month_stats.  Returns the kept rows
-    ({column: (data, validity)}), the path's launches and the kernel
-    shapes."""
-    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
-    m1, m2 = q39v_plans(moy)
-    svc1, svc2 = InProcessShuffleService(), InProcessShuffleService()
-    sid1, sid2 = f"q39v_{moy}_agg", f"q39v_{moy}_kept"
-    K.reset_launches()
-    maps1, t1, blocks1 = run_shuffle_stage(
-        m1, svc1, sid1, N_AGG_PARTS,
-        lambda m: map_task(m, icols, ivalid, svc1, dev, m1, sid1, "join",
-                           N_AGG_PARTS))
-    after1 = dict(K.LAUNCHES)
-    maps2, t2, blocks2 = run_shuffle_stage(
-        m2, svc2, sid2, len(blocks1),
-        lambda p: reduce_task(m2, blocks1, 2, p, dev,
-                              svc2.rss_writer(sid2, p)))
-    launches = dict(K.LAUNCHES)
-    pushed1, shapes1 = check_stage(f"q39v month {moy} map", after1, maps1,
-                                   N_AGG_PARTS, hash_pid=False)
-    pushed2, shapes2 = check_stage(f"q39v month {moy} reduce",
-                                   _stage_launches(after1, launches), maps2,
-                                   N_AGG_PARTS, hash_pid=False)
-    kept = {}
-    blocks = [b for part in blocks2 for b in part]
-    names = (f"w{moy}", f"i{moy}", f"mean{moy}", f"sdev{moy}")
-    for i, name in enumerate(names):
-        kept[name] = (
-            np.concatenate([b.columns[i].data[:b.num_rows].cpu().numpy()
-                            for b in blocks]),
-            np.concatenate([b.columns[i].validity[:b.num_rows].cpu().numpy()
-                            for b in blocks]))
-    print(f"phase 14: q39v month {moy} map (join rows -> partial avg, "
-          f"stddev_samp -> hash(4) on two keys) {t1:.3f} s "
-          f"({len(icols[0]) / t1:.0f} rows/s), reduce (final -> rename -> "
-          f"filter -> hash(4)) {t2:.3f} s; map: {pushed1} map-side batches "
-          f"= {after1['radix_bucket_hist']} radix-hist (b = 2), reduce: "
-          f"{pushed2} = {launches['radix_bucket_hist'] - after1['radix_bucket_hist']}"
-          f" radix-hist (b = 2), 0 hash-pid (two keys) | {card}")
-    return kept, launches, shapes1 + shapes2
 
 
 def check_q39v(kept, icols, ivalid, moy: int):
@@ -1927,26 +1842,13 @@ def make_customer(rows: int = SF10_CUSTOMERS):
 
 def make_q01_join(rcols, rvalid, K):
     """The rows q01's sort-merge join emits at SF 10, from phase 12's
-    store_returns in numpy: ctr = Sum of sr_return_amt by (customer,
-    store), each store's threshold 1.2 x its mean ctr, the rows with ctr
-    > threshold (a null store matches no threshold), inner-joined to
-    customer (a null customer matches none).  Returns the 7 columns, all
-    valid, in the 4 hash partitions of c_customer_sk and sorted by
-    customer within each, and the partitions' row offsets."""
-    cust, store, amt = rcols
-    cv, sv, av = rvalid
-    width = SF10_STORES + 2
-    pair, inv = np.unique(np.where(cv, cust, -1) * width +
-                          np.where(sv, store, -1) + 1, return_inverse=True)
-    ctr = np.bincount(inv, weights=np.where(av, amt, 0.0))
-    has = np.bincount(inv, weights=av) > 0
-    p_cust, p_store = pair // width, pair % width - 1
-    stores, sinv = np.unique(p_store, return_inverse=True)
-    n = np.bincount(sinv, weights=has)
-    threshold = 1.2 * (np.bincount(sinv, weights=np.where(has, ctr, 0.0)) /
-                       np.maximum(n, 1))[sinv]
-    keep = has & (p_store >= 0) & (n[sinv] > 0) & (p_cust >= 0) & \
-        (ctr > threshold)
+    store_returns in numpy: the rows over their store's threshold
+    (`q01_ctr`), inner-joined to customer (a null customer matches
+    none).  Returns the 7 columns, all valid, in the 4 hash partitions
+    of c_customer_sk and sorted by customer within each, and the
+    partitions' row offsets."""
+    p_cust, p_store, ctr, threshold, over = q01_ctr(rcols, rvalid)
+    keep = over & (p_cust >= 0)
     c, st = p_cust[keep], p_store[keep]
     pid = K.hash_partition_ids_i64_plain(
         torch.from_numpy(c), torch.ones(len(c), dtype=torch.bool),
@@ -2141,30 +2043,6 @@ def check_q41d(out, icols, ivalid):
     return len(groups)
 
 
-def run_q01_customer(ccols, cvalid, dev, K, card: str):
-    """Phase 17: q01's customer exchange (2 map tasks into hash(4) by
-    c_customer_sk).  Returns the blocks, launches and kernel shapes."""
-    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
-    plan = q01_customer_plan()
-    svc = InProcessShuffleService()
-    K.reset_launches()
-    maps, secs, blocks = run_shuffle_stage(
-        plan, svc, "customer", N_CUSTOMER_MAPS,
-        lambda m: map_task(m, ccols, cvalid, svc, dev, plan, "customer",
-                           "customer", N_CUSTOMER_MAPS))
-    launches = dict(K.LAUNCHES)
-    pushed, shapes = check_stage("q01 customer exchange", launches, maps,
-                                 N_AGG_PARTS, hash_pid=True,
-                                 scan_batch=SCAN_BATCH)
-    print(f"phase 17: q01 customer exchange (scan -> hash(4) by "
-          f"c_customer_sk, c_customer_id carried) {secs:.3f} s "
-          f"({len(ccols[0]) / secs:.0f} rows/s), {pushed} map-side batches "
-          f"= {launches['hash_partition_ids_i64']} hash-pid = "
-          f"{launches['radix_bucket_hist']} radix-hist launches (b = 2) "
-          f"| {card}")
-    return blocks, launches, shapes
-
-
 def check_q01_customer(blocks, ccols, K) -> list:
     """Every customer once, in partition pmod(murmur3(sk), 4) of the
     plain version, its c_customer_id intact; rows per partition as
@@ -2201,52 +2079,24 @@ def _q01_key(cols, i):
     return (cols[6][i].encode(), cols[1][i], -cols[2][i])
 
 
-def run_q01_top(jcols, jvalid, offsets, dev, K, card: str):
-    """Phase 17: q01's take-ordered: one task per hash partition of the
-    join's rows (`offsets`) into the single exchange, then the last
-    task.  Returns its output, the exchange's blocks, the launches and
-    the kernel shapes."""
-    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
-    stage, top = q01_top_plans()
-    svc = InProcessShuffleService()
-    K.reset_launches()
-    maps, t1, blocks = run_shuffle_stage(
-        stage, svc, "q01_top", N_AGG_PARTS,
-        lambda m: map_task(m, jcols, jvalid, svc, dev, stage, "q01_top",
-                           "join", split=(int(offsets[m]),
-                                          int(offsets[m + 1]))))
-    after = dict(K.LAUNCHES)
-    t = time.perf_counter()
-    out = reduce_task(top, blocks, 3, 0, dev).to_numpy()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter() - t
-    if dict(K.LAUNCHES) != after:
-        raise AssertionError("q01 take-ordered's last task launched a "
-                             "kernel")
-    pushed, shapes = check_stage("q01 take-ordered", after, maps, 1,
-                                 hash_pid=False)
-    print(f"phase 17: q01 take-ordered of {len(jcols[0])} join rows: 4 tasks "
-          f"(sort fetch 100 by (c_customer_id, sr_store_sk, ctr desc) -> "
-          f"single) {t1:.3f} s ({len(jcols[0]) / t1:.0f} rows/s), last task "
-          f"(sort fetch 100 -> project) {t2:.4f} s; {pushed} map-side "
-          f"batches = {after['radix_bucket_hist']} radix-hist (b = 1), 0 "
-          f"hash-pid | {card}")
-    return out, blocks, after, shapes
-
-
 def check_q01_top(out, blocks, jcols, offsets):
     """Each task's block holds the first 100 rows of its partition, all
-    seven columns, and the last task's c_customer_id list is the first
-    100 of all rows, as Python sorts them."""
+    seven columns (the keys and ids exact, ctr and the threshold, which
+    the engine sums in another order than numpy, to relative 1e-9), and
+    the last task's c_customer_id list is the first 100 of all rows, as
+    Python sorts them.  (customer, store) is unique in the join's rows,
+    so the order does not rest on the float ctr."""
     import heapq
-    names = [n for n, _ in Q01_JOIN]
     for p, b in enumerate(blocks[0]):
         lo, hi = int(offsets[p]), int(offsets[p + 1])
         top = heapq.nsmallest(100, range(lo, hi),
                               key=lambda i: _q01_key(jcols, i))
         vals, _ = b.to_numpy()
-        for ci, name in enumerate(names):
-            if list(vals[ci]) != [jcols[ci][i] for i in top]:
+        for ci, (name, kind) in enumerate(Q01_JOIN):
+            want = np.array([jcols[ci][i] for i in top], dtype=vals[ci].dtype)
+            if len(vals[ci]) != len(want) or not (
+                    np.allclose(vals[ci], want, rtol=1e-9, atol=0)
+                    if kind == "f64" else list(vals[ci]) == list(want)):
                 raise AssertionError(f"q01 take-ordered: task {p}'s "
                                      f"{name} differs from Python's sort")
     top = heapq.nsmallest(100, range(len(jcols[0])),
@@ -2322,6 +2172,646 @@ def check_string_keys(outs, scols, svalid) -> int:
         raise AssertionError(f"string keys: {len(got)} groups, Python "
                              f"{len(exp)}; first difference {bad[:1]!r}")
     return len(got)
+
+
+# ---------------------------------------------------------------------------
+# joins: q01, q17m and q39v whole (phases 13, 14 and 17), every join type
+# (phase 19)
+# ---------------------------------------------------------------------------
+
+Q17M_SALES = (("ss_ticket_number", "i64"), ("ss_item_sk", "i64"),
+              ("ss_store_sk", "i64"), ("ss_quantity", "i32"))
+Q17M_RETURNS = (("sr_ticket_number", "i64"), ("sr_item_sk", "i64"),
+                ("sr_return_amt", "f64"))
+INVENTORY = (("inv_date_sk", "i64"), ("inv_item_sk", "i64"),
+             ("inv_warehouse_sk", "i64"), ("inv_quantity_on_hand", "i32"))
+DATE_DIM = (("d_date_sk", "i64"), ("d_moy", "i32"), ("d_year", "i32"))
+SF10_DATE_DIM_ROWS = 73_049          # TPC-DS date_dim, 1900-01-02 on
+DATE_DIM_FIRST_SK = 2_415_022
+GRID_FIRST_SK = 2_450_815            # `it/datagen.py`'s 1998-01-01
+Q39V_MONTHS = (1, 2, 3)              # the inventory snapshots scanned
+N_INVENTORY_MAPS = 4
+
+
+def _replaced(node, swap):
+    """The port plan with every node `swap` maps (by its result for the
+    node, None keeps it) replaced, children first."""
+    import dataclasses
+    from auron_tpu_torch.ir import plan as P
+    kids = {f.name: _replaced(getattr(node, f.name), swap)
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), P.PlanNode)}
+    if kids:
+        node = dataclasses.replace(node, **kids)
+    new = swap(node)
+    return node if new is None else new
+
+
+def _ipc_renamed(plan, ids):
+    """The plan with each IpcReader's resource id looked up in `ids`."""
+    import dataclasses
+    return _replaced(plan, lambda n: dataclasses.replace(
+        n, resource_id=ids[n.resource_id])
+        if n.kind == "ipc_reader" else None)
+
+
+def _reader_replaced(plan, rid, subtree):
+    """The plan with its FFIReader `rid` replaced by `subtree`."""
+    return _replaced(plan, lambda n: subtree if n.kind == "ffi_reader"
+                     and n.resource_id == rid else None)
+
+
+def _sorted_by(child, names):
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    return P.Sort(child=child, sort_exprs=tuple(
+        E.SortExpr(child=E.col(n), asc=True, nulls_first=True)
+        for n in names))
+
+
+def _smj(left, right, lkeys, rkeys):
+    """The converter's sort-merge join: each side sorted by its keys,
+    inner, ascending nulls first."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    return P.SortMergeJoin(
+        left=_sorted_by(left, lkeys), right=_sorted_by(right, rkeys),
+        on=P.JoinOn(left_keys=tuple(E.col(k) for k in lkeys),
+                    right_keys=tuple(E.col(k) for k in rkeys)),
+        join_type="inner", sort_options=((True, True),) * len(lkeys))
+
+
+def _bhj(left, broadcast, schema, lkey, rkey, cache_id):
+    """The converter's broadcast join: the right side a build-map stage
+    over the broadcast's IPC reader."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    build = P.BroadcastJoinBuildHashMap(
+        child=P.IpcReader(schema=schema, resource_id=broadcast),
+        keys=(E.col(rkey),), cache_id=cache_id)
+    return P.BroadcastJoin(
+        left=left, right=build,
+        on=P.JoinOn(left_keys=(E.col(lkey),), right_keys=(E.col(rkey),)),
+        join_type="inner", broadcast_side="right",
+        cached_build_hash_map_id=cache_id)
+
+
+def join_query_plans(name: str) -> dict:
+    """The stages of q01, q17m or q39v whole in the port's IR, as the
+    converter lowers them (tests/test_torch_corpus_joins.py holds them
+    to its JSON), in the order they run: {resource id: plan}, then
+    "root".  Ids are the converter's with the query's name for its plan
+    hash ("shuffle:q01:5", "broadcast:q01:3", "bhm:q01:4"); a shuffle
+    stage is its RssShuffleWriter, a broadcast stage the plan whose
+    batches it collects; each scan is an FFIReader of its table."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+
+    def rid(kind, n):
+        return f"{kind}:{name}:{n}"
+    if name == "q01":
+        s1, s2, s3 = q01_plans()
+        stage, top = q01_top_plans()
+        ctr = _ipc_renamed(s2.child.child, {"shuffle_read": rid("shuffle", 0)})
+        over = P.Filter(
+            child=_bhj(ctr, rid("broadcast", 3),
+                       _schema(("avg_store_sk", "i64"), ("threshold", "f64")),
+                       "sr_store_sk", "avg_store_sk", rid("bhm", 4)),
+            predicates=(E.BinaryExpr(left=E.col("ctr_total_return"), op=">",
+                                     right=E.col("threshold")),))
+        join = _smj(P.IpcReader(schema=_schema(*Q01_JOIN[:5]),
+                                resource_id=rid("shuffle", 5)),
+                    P.IpcReader(schema=_schema(*CUSTOMER),
+                                resource_id=rid("shuffle", 6)),
+                    ["sr_customer_sk"], ["c_customer_sk"])
+        return {
+            rid("shuffle", 0): s1, rid("shuffle", 1): s1,
+            rid("shuffle", 2): _ipc_renamed(
+                s2, {"shuffle_read": rid("shuffle", 1)}),
+            rid("broadcast", 3): _ipc_renamed(
+                s3, {"shuffle_read": rid("shuffle", 2)}),
+            rid("shuffle", 5): _writer(over, "hash", N_AGG_PARTS,
+                                       (E.col("sr_customer_sk"),)),
+            rid("shuffle", 6): q01_customer_plan(),
+            rid("shuffle", 7): _reader_replaced(stage, "join", join),
+            "root": _ipc_renamed(top, {"shuffle_read": rid("shuffle", 7)})}
+    if name == "q17m":
+        s1, s2, s3 = q17m_plans()
+        sales = ("ss_ticket_number", "ss_item_sk")
+        rets = ("sr_ticket_number", "sr_item_sk")
+        join = _smj(P.IpcReader(schema=_schema(*Q17M_SALES),
+                                resource_id=rid("shuffle", 0)),
+                    P.IpcReader(schema=_schema(*Q17M_RETURNS),
+                                resource_id=rid("shuffle", 1)),
+                    list(sales), list(rets))
+        return {
+            rid("shuffle", 0): _writer(
+                P.FFIReader(schema=_schema(*Q17M_SALES),
+                            resource_id="store_sales"),
+                "hash", N_AGG_PARTS, tuple(E.col(k) for k in sales)),
+            rid("shuffle", 1): _writer(
+                P.FFIReader(schema=_schema(*Q17M_RETURNS),
+                            resource_id="store_returns"),
+                "hash", N_AGG_PARTS, tuple(E.col(k) for k in rets)),
+            rid("shuffle", 2): _reader_replaced(s1, "join", join),
+            rid("shuffle", 3): _ipc_renamed(
+                s2, {"shuffle_read": rid("shuffle", 2)}),
+            "root": _ipc_renamed(s3, {"shuffle_read": rid("shuffle", 3)})}
+    if name != "q39v":
+        raise ValueError(f"no join query {name!r}")
+    i32 = DataType.int32()
+    out = {}
+    for moy, base in ((1, 0), (2, 4)):
+        m1, m2 = q39v_plans(moy)
+        bc = rid("broadcast", base)
+        out[bc] = P.Filter(
+            child=P.FFIReader(schema=_schema(*DATE_DIM),
+                              resource_id="date_dim"),
+            predicates=(E.BinaryExpr(left=E.col("d_moy"), op="==",
+                                     right=E.Literal(value=moy, dtype=i32)),
+                        E.BinaryExpr(left=E.col("d_year"), op="==",
+                                     right=E.Literal(value=2000,
+                                                     dtype=i32))))
+        scan = P.FFIReader(schema=_schema(*INVENTORY),
+                           resource_id="inventory")
+        out[rid("shuffle", base + 2)] = _reader_replaced(
+            m1, "join", _bhj(scan, bc, _schema(*DATE_DIM), "inv_date_sk",
+                             "d_date_sk", rid("bhm", base + 1)))
+        out[rid("shuffle", base + 3)] = _ipc_renamed(
+            m2, {"shuffle_read": rid("shuffle", base + 2)})
+    kept = [_schema((f"w{m}", "i64"), (f"i{m}", "i64"), (f"mean{m}", "f64"),
+                    (f"sdev{m}", "f64")) for m in (1, 2)]
+    join = _smj(P.IpcReader(schema=kept[0], resource_id=rid("shuffle", 3)),
+                P.IpcReader(schema=kept[1], resource_id=rid("shuffle", 7)),
+                ["w1", "i1"], ["w2", "i2"])
+    order = tuple(E.SortExpr(child=E.col(n), asc=True, nulls_first=True)
+                  for n in ("w1", "i1", "mean1", "mean2"))
+    joined = _schema(*((f.name, {"INT64": "i64", "FLOAT64": "f64"}[
+        f.dtype.id.name]) for s in kept for f in s))
+    stage, top = _take_ordered(
+        P.FFIReader(schema=joined, resource_id="join"), order, 100,
+        joined, ("w1", "i1", "mean1", "sdev1", "mean2", "sdev2"))
+    out[rid("shuffle", 8)] = _reader_replaced(stage, "join", join)
+    out["root"] = _ipc_renamed(top, {"shuffle_read": rid("shuffle", 8)})
+    return out
+
+
+@contextlib.contextmanager
+def recorded_shapes(K, shapes: list):
+    """Record the (kernel, rows, n_parts) of every writer-side kernel
+    call into `shapes` (for phase 15): the histogram through the
+    writer's `sizes_by_hist`, hash-pid through its wrapper, both called
+    through unchanged, so the launch counts stay the wrappers' own."""
+    from auron_tpu_torch.ops.shuffle import writer as W
+    hist, pid = W.sizes_by_hist, K.hash_partition_ids_i64
+
+    @functools.wraps(hist)
+    def sizes_by_hist(pids, n_parts):
+        shapes.append(("hist", int(pids.shape[0]), n_parts))
+        return hist(pids, n_parts)
+
+    @functools.wraps(pid)
+    def hash_partition_ids_i64(data, validity, n_parts):
+        shapes.append(("hash_pid", int(data.shape[0]), n_parts))
+        return pid(data, validity, n_parts)
+    W.sizes_by_hist, K.hash_partition_ids_i64 = sizes_by_hist, \
+        hash_partition_ids_i64
+    try:
+        yield
+    finally:
+        W.sizes_by_hist, K.hash_partition_ids_i64 = hist, pid
+
+
+def _reader_ids(plan, kind: str) -> list:
+    out = []
+    _replaced(plan, lambda n: out.append(n.resource_id)
+              if n.kind == kind else None)
+    return out
+
+
+def _scan_batches(cols, valid, lo: int, hi: int):
+    """The front end's scan batches of rows [lo, hi): batch-size
+    slices."""
+    from auron_tpu_torch.config import conf
+    bs = int(conf.get("auron.batch.size"))
+    return [([c[s:min(s + bs, hi)] for c in cols],
+             [v[s:min(s + bs, hi)] for v in valid])
+            for s in range(lo, hi, bs)]
+
+
+def join_stage_task(plan, m: int, n: int, res, stage: int, dev,
+                    scan=None, writer=None):
+    """Task m of n of a stage through execute_task_bytes, `res` the
+    stage's registry (its tasks share it: a broadcast's build table is
+    cached there); `scan` = (table, cols, valid) splits the table's rows
+    n ways, `writer` the stage's shuffle service and id."""
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    if scan is not None:
+        table, cols, valid = scan
+        rows = len(cols[0])
+        res.put(table, _scan_batches(cols, valid, m * rows // n,
+                                     (m + 1) * rows // n))
+    if writer is not None:
+        svc, sid = writer
+        res.put("shuffle_writer", svc.rss_writer(sid, m))
+    task = P.TaskDefinition(plan=plan, stage_id=stage, partition_id=m,
+                            num_partitions=n)
+    return execute_task_bytes(serde.serialize(task), res, device=dev)
+
+
+class JoinQuery:
+    """One run of q01, q17m or q39v whole on the card: its stages in
+    order (`join_query_plans`), each over its scan's table split
+    `n_maps[table]` ways or over the partitions of the exchange it
+    reads.  Keeps, per stage id: the seconds, the task results, the
+    launches, and a shuffle's blocks per partition or a broadcast's
+    batches; `shapes` gets every writer-side kernel shape."""
+
+    def __init__(self, name, tables, n_maps, dev, K):
+        self.name, self.tables, self.n_maps = name, tables, n_maps
+        self.dev, self.K = dev, K
+        self.plans = join_query_plans(name)
+        self.secs, self.results, self.launches = {}, {}, {}
+        self.blocks, self.shapes = {}, []
+
+    def registry(self, plan, cut: int = 1):
+        """A stage's registry: every exchange and broadcast it reads; with
+        `cut`, only the first 1/cut of each partition's blocks."""
+        from auron_tpu_torch.ops.shuffle.writer import PartitionedBlocks
+        from auron_tpu_torch.runtime.resources import ResourceRegistry
+        res = ResourceRegistry()
+        for r in _reader_ids(plan, "ipc_reader"):
+            b = self.blocks[r]
+            res.put(r, PartitionedBlocks([p[:max(1, len(p) // cut)]
+                                          for p in b])
+                    if r.startswith("shuffle") else b)
+        return res
+
+    def tasks(self, plan):
+        """(task count, scan of the stage or None)."""
+        scans = _reader_ids(plan, "ffi_reader")
+        if scans:
+            [table] = scans
+            return self.n_maps[table], (table,) + self.tables[table]
+        first = next(r for r in _reader_ids(plan, "ipc_reader")
+                     if r.startswith("shuffle"))
+        return len(self.blocks[first]), None
+
+    def run_task(self, rid, m: int, svc=None, res=None):
+        """Task m of stage `rid` (into `svc` when it writes), reading
+        `res` or all its inputs."""
+        plan = self.plans[rid]
+        n, scan = self.tasks(plan)
+        return join_stage_task(plan, m, n, res or self.registry(plan),
+                               list(self.plans).index(rid) + 1, self.dev,
+                               scan, None if svc is None else (svc, rid))
+
+    def run(self):
+        from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+        K = self.K
+        K.reset_launches()
+        with recorded_shapes(K, self.shapes):
+            for rid, plan in self.plans.items():
+                before = dict(K.LAUNCHES)
+                t0 = time.perf_counter()
+                n, _ = self.tasks(plan)
+                res = self.registry(plan)
+                svc = InProcessShuffleService() \
+                    if rid.startswith("shuffle") else None
+                results = [self.run_task(rid, m, svc, res)
+                           for m in range(n)]
+                torch.cuda.synchronize()
+                self.secs[rid] = time.perf_counter() - t0
+                self.results[rid] = results
+                launches = _stage_launches(before, dict(K.LAUNCHES))
+                self.launches[rid] = launches
+                if svc is not None:
+                    self._check_writers(rid, plan, results, launches)
+                    self.blocks[rid] = [
+                        svc.reduce_blocks(rid, p)
+                        for p in range(plan.partitioning.num_partitions)]
+                elif any(launches.values()):
+                    raise AssertionError(f"{rid} launched a kernel: "
+                                         f"{launches}")
+                else:
+                    self.blocks[rid] = [b for r in results
+                                        for b in r.batches]
+        return self
+
+    @staticmethod
+    def _check_writers(rid, plan, results, launches):
+        """The histogram on every writer batch, hash-pid on each too when
+        the exchange hashes one key (each such key here is int64)."""
+        p = plan.partitioning
+        pushed = sum(r.metrics.get("shuffle_write_batches", 0)
+                     for r in results)
+        by_hist = sum(r.metrics.get("sizes_by_hist", 0) for r in results)
+        want_pid = pushed if p.mode == "hash" and \
+            len(p.expressions) == 1 else 0
+        if not pushed or launches["radix_bucket_hist"] != pushed or \
+                by_hist != pushed or \
+                launches["hash_partition_ids_i64"] != want_pid:
+            raise AssertionError(f"{rid}: {launches} for {pushed} writer "
+                                 f"batches (want the histogram on each, "
+                                 f"hash-pid on {want_pid})")
+
+    def total_launches(self) -> dict:
+        return {k: sum(v[k] for v in self.launches.values())
+                for k in self.K.LAUNCHES}
+
+    def rows_written(self, rid) -> int:
+        return sum(r.metrics.get("shuffle_write_rows", 0)
+                   for r in self.results[rid])
+
+    def report(self, phase: int, card: str) -> None:
+        for rid, secs in self.secs.items():
+            la = self.launches[rid]
+            print(f"phase {phase}: {rid} {len(self.results[rid])} tasks "
+                  f"{secs:.3f} s, {la['hash_partition_ids_i64']} hash-pid, "
+                  f"{la['radix_bucket_hist']} radix-hist launches | {card}")
+
+    def out(self):
+        return self.results["root"][0].to_numpy()
+
+
+def _blocks_numpy(blocks, names) -> dict:
+    """{name: (data, validity)} of a list of batches' live rows."""
+    parts = [b.to_numpy() for b in blocks]
+    return {n: (np.concatenate([p[0][i] for p in parts]),
+                np.concatenate([p[1][i] for p in parts]))
+            for i, n in enumerate(names)}
+
+
+def make_q17m_tables(cols, valid, ridx, rcols, rvalid, seed: int):
+    """store_sales as q17m scans it, all rows: ss_ticket_number the row
+    number + 1 (never null), ss_item_sk uniform over the SF-10 items,
+    ss_store_sk over the SF-10 stores with NULL_FRACTION nulls (a
+    generator of its own), ss_quantity phase 3's; store_returns: each
+    returned sale's ticket and item, phase 12's sr_return_amt.  Returns
+    the two tables and the join's rows in numpy (one per return, in
+    Q17M_JOIN's layout)."""
+    rng = np.random.default_rng([seed, 17])
+    rows = len(cols[0])
+    ticket = np.arange(1, rows + 1, dtype=np.int64)
+    item = rng.integers(1, SF10_ITEMS + 1, rows, dtype=np.int64)
+    store = rng.integers(1, SF10_STORES + 1, rows, dtype=np.int64)
+    store_valid = rng.random(rows) >= NULL_FRACTION
+    ones = np.ones(rows, bool)
+    sales = ([ticket, item, store, cols[1]],
+             [ones, ones, store_valid, valid[1]])
+    n = len(ridx)
+    rones = np.ones(n, bool)
+    returns = ([ticket[ridx], item[ridx], rcols[2]],
+               [rones, rones, rvalid[2]])
+    join = ([ticket[ridx], item[ridx], store[ridx], cols[1][ridx],
+             ticket[ridx], item[ridx], rcols[2]],
+            [rones, rones, store_valid[ridx], valid[1][ridx], rones, rones,
+             rvalid[2]])
+    return sales, returns, join
+
+
+def check_q17m_join_rows(q: JoinQuery, n_join: int) -> int:
+    """Every store group reaches the single exchange (at most 100 a
+    partition), and their counts of tickets sum to the join's rows."""
+    groups = _blocks_numpy(q.blocks["shuffle:q17m:3"][0],
+                           ("ss_store_sk", "min_q", "max_q", "avg_r", "n"))
+    got = int(groups["n"][0].sum())
+    if got != n_join or len(groups["n"][0]) != SF10_STORES + 1:
+        raise AssertionError(f"q17m: the join gave {got} rows in "
+                             f"{len(groups['n'][0])} store groups, numpy "
+                             f"{n_join} rows in {SF10_STORES + 1}")
+    return got
+
+
+def make_date_dim(rows: int = SF10_DATE_DIM_ROWS):
+    """TPC-DS date_dim's keys and month and year: d_date_sk from
+    2,415,022 on, on `it/datagen.py`'s calendar extended both ways
+    (2,450,815 is 1998-01-01, years of 365 days, months of 30 with
+    December the rest); none null."""
+    sk = DATE_DIM_FIRST_SK + np.arange(rows, dtype=np.int64)
+    day = sk - GRID_FIRST_SK
+    doy, year = day % 365, 1998 + day // 365
+    ones = np.ones(rows, bool)
+    return ([sk, np.minimum(doy // 30 + 1, 12).astype(np.int32),
+             year.astype(np.int32)], [ones, ones, ones])
+
+
+def make_inventory(seed: int, items: int):
+    """The inventory snapshots q39v's scan reads: those of January to
+    March 2000 (`make_inventory_month`'s rows, its first four columns),
+    and each month's join rows."""
+    months = {m: make_inventory_month(m, seed, items) for m in Q39V_MONTHS}
+    cols = [np.concatenate([months[m][0][i] for m in Q39V_MONTHS])
+            for i in range(4)]
+    valid = [np.concatenate([months[m][1][i] for m in Q39V_MONTHS])
+             for i in range(4)]
+    return (cols, valid), months
+
+
+def check_q39v_top(out, kept1, kept2) -> int:
+    """The root's rows are the first 100, by (w, i, mean1, mean2), of
+    the two months' kept groups joined on (w, i), their values those the
+    two exchanges hold.  Returns the joined groups."""
+    def rows(kept, m):
+        w, i, mean, sd = (kept[f"{c}{m}"][0] for c in ("w", "i", "mean",
+                                                       "sdev"))
+        return {(int(a), int(b)): (float(c), float(d))
+                for a, b, c, d in zip(w, i, mean, sd)}
+    r1, r2 = rows(kept1, 1), rows(kept2, 2)
+    both = sorted((k + (r1[k][0], r2[k][0]), k) for k in r1.keys() & r2.keys())
+    want = [(k[0], k[1], r1[k][0], r1[k][1], r2[k][0], r2[k][1])
+            for _, k in both[:100]]
+    cols = [out[c] for c in ("w1", "i1", "mean1", "sdev1", "mean2",
+                             "sdev2")]
+    if not all(v.all() for _, v in cols[:2]):
+        raise AssertionError("q39v: a null key came out")
+    got = [tuple(c[0][j].item() for c in cols) for j in range(len(cols[0][0]))]
+    if [tuple(map(repr, g)) for g in got] != \
+            [tuple(map(repr, w)) for w in want]:
+        raise AssertionError("q39v: the top 100 differ from the two "
+                             "months' kept groups joined in Python")
+    return len(both)
+
+
+def q01_ctr(rcols, rvalid):
+    """q01 in numpy over phase 12's store_returns: ctr = Sum of
+    sr_return_amt by (customer, store), each store's threshold 1.2 x its
+    mean ctr.  Returns (customer, store, ctr, threshold, the rows the
+    broadcast join and its filter keep); a null key is -1."""
+    cust, store, amt = rcols
+    cv, sv, av = rvalid
+    width = SF10_STORES + 2
+    pair, inv = np.unique(np.where(cv, cust, -1) * width +
+                          np.where(sv, store, -1) + 1, return_inverse=True)
+    ctr = np.bincount(inv, weights=np.where(av, amt, 0.0))
+    has = np.bincount(inv, weights=av) > 0
+    p_cust, p_store = pair // width, pair % width - 1
+    stores, sinv = np.unique(p_store, return_inverse=True)
+    n = np.bincount(sinv, weights=has)
+    threshold = 1.2 * (np.bincount(sinv, weights=np.where(has, ctr, 0.0)) /
+                       np.maximum(n, 1))[sinv]
+    over = has & (p_store >= 0) & (n[sinv] > 0) & (ctr > threshold)
+    return p_cust, p_store, ctr, threshold, over
+
+
+# every join type (phase 19)
+JOIN_SIDE_ROWS = 1 << 16
+JOIN_KEYS = 1 << 12                  # ~16 rows a key on each side
+JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+              "right_semi", "right_anti", "existence")
+# the JAX package's broadcast legality (runtime/adaptive.py
+# _BCAST_SAFE_TYPES): the side a broadcast join may build on
+BROADCAST_LEFT = ("right", "right_semi", "right_anti")
+JOIN_LEFT = (("lk", "i64"), ("lv", "i64"))
+JOIN_RIGHT = (("rk", "i64"), ("rv", "f64"), ("rs", "str"))
+
+
+def join_type_cases():
+    """(operator, join type, build side) of every legal combination: a
+    broadcast join (all but full), the shuffled hash join built on each
+    side it may be, the sort-merge join streaming and whole-side."""
+    out = []
+    for jt in JOIN_TYPES:
+        if jt != "full":
+            out.append(("broadcast", jt,
+                        "left" if jt in BROADCAST_LEFT else "right"))
+        if jt not in ("right_semi", "right_anti"):
+            out.append(("hash", jt, "right"))
+        if jt not in ("left_semi", "left_anti", "existence"):
+            out.append(("hash", jt, "left"))
+        out += [("smj", jt, None), ("smj_whole", jt, None)]
+    return out
+
+
+def join_type_plan(op: str, jt: str, build: str):
+    """A join of FFIReaders "left" and "right" on lk = rk."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    left = P.FFIReader(schema=_schema(*JOIN_LEFT), resource_id="left")
+    right = P.FFIReader(schema=_schema(*JOIN_RIGHT), resource_id="right")
+    on = P.JoinOn(left_keys=(E.col("lk"),), right_keys=(E.col("rk"),))
+    if op == "broadcast":
+        cache = "bhm:phase19:1"
+        keys = on.left_keys if build == "left" else on.right_keys
+        if build == "left":
+            left = P.BroadcastJoinBuildHashMap(child=left, keys=keys,
+                                               cache_id=cache)
+        else:
+            right = P.BroadcastJoinBuildHashMap(child=right, keys=keys,
+                                                cache_id=cache)
+        return P.BroadcastJoin(left=left, right=right, on=on, join_type=jt,
+                               broadcast_side=build,
+                               cached_build_hash_map_id=cache)
+    if op == "hash":
+        return P.HashJoin(left=left, right=right, on=on, join_type=jt,
+                          build_side=build)
+    return P.SortMergeJoin(left=_sorted_by(left, ["lk"]),
+                           right=_sorted_by(right, ["rk"]), on=on,
+                           join_type=jt, sort_options=((True, True),))
+
+
+def make_join_sides(seed: int, n: int = JOIN_SIDE_ROWS):
+    """Two sides of n rows on JOIN_KEYS keys, each key on ~16 rows a
+    side; an eighth of each side's keys lie where the other side has
+    none; NULL_FRACTION nulls in every column, a string payload on the
+    right."""
+    rng = np.random.default_rng([seed, 19])
+    lk = rng.integers(0, JOIN_KEYS + JOIN_KEYS // 8, n, dtype=np.int64)
+    rk = rng.integers(-(JOIN_KEYS // 8), JOIN_KEYS, n, dtype=np.int64)
+    lv = rng.integers(-10**9, 10**9, n, dtype=np.int64)
+    rv = np.round(rng.random(n) * 1000.0, 2)
+    rs = customer_ids(rng.integers(1, SF10_CUSTOMERS + 1, n))
+    valid = [rng.random(n) >= NULL_FRACTION for _ in range(5)]
+    return ([lk, lv], valid[:2]), ([rk, rv, rs], valid[2:])
+
+
+def join_type_rows(jt: str, left, right) -> int:
+    """The rows a join of type jt gives, counted in numpy."""
+    (lk, _), (lkv, _) = left
+    (rk, _, _), (rkv, _, _) = right
+    keys = np.union1d(lk[lkv], rk[rkv])
+    cl = np.bincount(np.searchsorted(keys, lk[lkv]), minlength=len(keys))
+    cr = np.bincount(np.searchsorted(keys, rk[rkv]), minlength=len(keys))
+    inner = int((cl * cr).sum())
+    l_hit = int(cl[cr > 0].sum())
+    r_hit = int(cr[cl > 0].sum())
+    nl, nr = len(lk), len(rk)
+    return {"inner": inner, "left": inner + nl - l_hit,
+            "right": inner + nr - r_hit,
+            "full": inner + nl - l_hit + nr - r_hit, "left_semi": l_hit,
+            "left_anti": nl - l_hit, "right_semi": r_hit,
+            "right_anti": nr - r_hit, "existence": nl}[jt]
+
+
+def run_join_type(plan, left, right, dev, streaming: bool):
+    """One join task through execute_task_bytes: (its rows on the host,
+    its root metrics)."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    res = ResourceRegistry()
+    for rid, (cols, valid) in (("left", left), ("right", right)):
+        res.put(rid, _scan_batches(cols, valid, 0, len(cols[0])))
+    with conf.scoped({"auron.smj.streaming.enable": streaming}):
+        out = execute_task_bytes(serde.serialize(P.TaskDefinition(plan=plan)),
+                                 res, device=dev)
+    return out.to_numpy(), out.metrics
+
+
+def _same_rows(a: dict, b: dict) -> bool:
+    """The same columns, validities and values under them, in order."""
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k][1], b[k][1]) and
+        list(a[k][0][a[k][1]]) == list(b[k][0][b[k][1]]) for k in a)
+
+
+def check_join_types(dev, seed: int, card: str) -> int:
+    """Phase 19: every join type through each operator on the card,
+    equal row for row to the port's own run on the CPU and in count to
+    numpy; the probe batches span several pair chunks; and with an empty
+    build side.  Returns the cases run."""
+    left, right = make_join_sides(seed)
+    empty = ([c[:0] for c in right[0]], [v[:0] for v in right[1]])
+    t0 = time.perf_counter()
+    cases = 0
+    for op, jt, build in join_type_cases():
+        plan = join_type_plan(op, jt, build)
+        streaming = op != "smj_whole"
+        runs = [(left, right)]
+        if build != "left" and jt in ("inner", "left", "left_anti",
+                                      "existence"):
+            runs.append((left, empty))
+        for lt, rt in runs:
+            got, metrics = run_join_type(plan, lt, rt, dev, streaming)
+            exp, _ = run_join_type(plan, lt, rt, "cpu", streaming)
+            n = len(next(iter(got.values()))[0])
+            want = join_type_rows(jt, lt, rt)
+            if n != want or not _same_rows(got, exp):
+                raise AssertionError(
+                    f"phase 19: {op} {jt} (build {build}) on "
+                    f"{len(rt[0][0])} build rows: {n} rows, numpy {want}, "
+                    f"the CPU's {len(next(iter(exp.values()))[0])}")
+            if jt == "existence":
+                ex = got["exists"][0]
+                if int(ex.sum()) != join_type_rows("left_semi", lt, rt):
+                    raise AssertionError(f"phase 19: {op} existence flags")
+            if op == "hash" and jt == "inner" and len(rt[0][0]) and \
+                    metrics.get("probe_chunks", 0) <= 2 * (
+                        len(lt[0][0]) // SCAN_BATCH):
+                raise AssertionError("phase 19: the probe batches did not "
+                                     "span several pair chunks")
+            cases += 1
+    print(f"phase 19: {cases} joins (every join type x broadcast, hash "
+          f"built left and right, sort-merge streaming and whole-side; "
+          f"{JOIN_SIDE_ROWS} rows a side, empty build sides) equal to the "
+          f"CPU's rows and numpy's counts in "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+    return cases
 
 
 def check_path_shapes(K, dev, rng, shapes) -> dict:
@@ -2552,23 +3042,34 @@ def main() -> int:
     print(f"phases 10-12: {time.perf_counter() - new_phases:.1f} s | {card}")
 
     t = new_phases = time.perf_counter()
-    jcols, jvalid = make_q17m_join(cols, valid, rcols, rvalid, ridx,
-                                   args.seed)
-    print(f"phase 13: {len(jcols[0])} q17m join rows made in "
+    sales, returns, (jcols, jvalid) = make_q17m_tables(
+        cols, valid, ridx, rcols, rvalid, args.seed)
+    print(f"phase 13: q17m's store_sales ({len(sales[0][0])} rows) and "
+          f"store_returns ({len(returns[0][0])} rows) made in "
           f"{time.perf_counter() - t:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    out, q17m_launches, path_shapes = run_q17m(jcols, jvalid, dev, K, card)
-    shapes += path_shapes
-    print(f"phase 13: q17m's {len(out['ss_store_sk'][0])} rows (of "
+    q = JoinQuery("q17m", {"store_sales": sales, "store_returns": returns},
+                  {"store_sales": N_MAPS, "store_returns": N_RETURN_MAPS},
+                  dev, K).run()
+    q.report(13, card)
+    shapes += q.shapes
+    q17m_launches = q.total_launches()
+    out = q.out()
+    n_join = check_q17m_join_rows(q, len(jcols[0]))
+    print(f"phase 13: q17m whole: the sort-merge join's {n_join} rows equal "
+          f"numpy's count; its {len(out['ss_store_sk'][0])} rows (of "
           f"{check_q17m(out, jcols, jvalid)} stores, the null store first) "
           f"equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    s1 = q17m_plans()[0]
-    profile_task("phase 13: q17m stage-1 map task 0",
-                 lambda: map_task(0, jcols, jvalid,
-                                  InProcessShuffleService(), dev, s1,
-                                  "q17m_agg", "join", N_AGG_PARTS), card)
-    del jcols, jvalid, ridx
+    # a sixteenth of the task: reading a whole task's trace (1.3 million
+    # launches) took 471 s on an H100
+    smj = q.plans["shuffle:q17m:2"]
+    profile_task("phase 13: q17m sort-merge join task 0 over the first "
+                 "sixteenth of its blocks",
+                 lambda: q.run_task("shuffle:q17m:2", 0,
+                                    InProcessShuffleService(),
+                                    q.registry(smj, cut=16)), card)
+    del q, sales, returns, jcols, jvalid, ridx
     fcols, fvalid = make_float_keys(args.seed,
                                     min(FLOAT_KEY_ROWS, args.rows))
     out, float_launches, path_shapes = run_float_keys(fcols, fvalid, dev,
@@ -2582,32 +3083,36 @@ def main() -> int:
     del fcols, fvalid
 
     items = max(100, INV_ITEMS * args.rows // SF10_STORE_SALES_ROWS)
-    q39v_launches = {k: 0 for k in K.LAUNCHES}
-    for moy in (1, 2):
-        t = time.perf_counter()
-        icols, ivalid = make_inventory_month(moy, args.seed, items)
-        print(f"phase 14: {len(icols[0])} q39v join rows of month {moy} "
-              f"made in {time.perf_counter() - t:.2f} s")
-        torch.cuda.reset_peak_memory_stats()
-        kept, launches_m, path_shapes = run_q39v_month(moy, icols, ivalid,
-                                                       dev, K, card)
-        shapes += path_shapes
-        n_kept, n_nan, n_tie = check_q39v(kept, icols, ivalid, moy)
+    t = time.perf_counter()
+    inventory, months = make_inventory(args.seed, items)
+    dates = make_date_dim()
+    print(f"phase 14: {len(inventory[0][0])} inventory rows (the snapshots "
+          f"of January to March 2000) and {len(dates[0][0])} date_dim rows "
+          f"made in {time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    q = JoinQuery("q39v", {"inventory": inventory, "date_dim": dates},
+                  {"inventory": N_INVENTORY_MAPS, "date_dim": 1}, dev,
+                  K).run()
+    q.report(14, card)
+    shapes += q.shapes
+    q39v_launches = q.total_launches()
+    kept = {}
+    for moy, rid in ((1, "shuffle:q39v:3"), (2, "shuffle:q39v:7")):
+        kept[moy] = _blocks_numpy(
+            [b for part in q.blocks[rid] for b in part],
+            (f"w{moy}", f"i{moy}", f"mean{moy}", f"sdev{moy}"))
+        n_kept, n_nan, n_tie = check_q39v(kept[moy], *months[moy], moy)
         print(f"phase 14: q39v month {moy}: {n_kept} of "
-              f"{items * SF10_WAREHOUSES} groups kept, equal to numpy "
-              f"({n_nan} of one valid row kept with sdev NaN, {n_tie} on "
-              f"the 0.4 tie), peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-        q39v_launches = {k: q39v_launches[k] + launches_m[k]
-                         for k in q39v_launches}
-        if moy == 1:
-            profile_task("phase 14: q39v month-1 map task 0",
-                         functools.partial(
-                             map_task, 0, icols, ivalid,
-                             InProcessShuffleService(), dev,
-                             q39v_plans(moy)[0], "q39v", "join",
-                             N_AGG_PARTS), card)
-        del icols, ivalid, kept
+              f"{items * SF10_WAREHOUSES} groups kept, equal to numpy over "
+              f"the month's {len(months[moy][0][0])} joined rows ({n_nan} "
+              f"of one valid row kept with sdev NaN, {n_tie} on the 0.4 "
+              f"tie) | {card}")
+    out = q.out()
+    print(f"phase 14: q39v whole: its {len(out['w1'][0])} rows equal the "
+          f"first 100 of the {check_q39v_top(out, kept[1], kept[2])} groups "
+          f"kept in both months, joined in Python, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    del q, inventory, months, dates, kept
     print(f"phases 13-14: {time.perf_counter() - new_phases:.1f} s | {card}")
 
     new_phases = time.perf_counter()
@@ -2638,33 +3143,33 @@ def main() -> int:
     ccols, cvalid = make_customer()
     print(f"phase 17: {len(ccols[0])} customer rows made in "
           f"{time.perf_counter() - t:.2f} s")
-    blocks, customer_launches, path_shapes = run_q01_customer(
-        ccols, cvalid, dev, K, card)
-    shapes += path_shapes
-    print(f"phase 17: q01 customer rows per partition "
-          f"{check_q01_customer(blocks, ccols, K)} equal to numpy's, each "
-          f"in its Spark partition with its c_customer_id | {card}")
-    del blocks, ccols, cvalid
-    t = time.perf_counter()
-    jcols, jvalid, offsets = make_q01_join(rcols, rvalid, K)
-    print(f"phase 17: {len(jcols[0])} q01 join rows made in "
-          f"{time.perf_counter() - t:.2f} s (partitions of "
-          f"{np.diff(offsets).tolist()} rows)")
     torch.cuda.reset_peak_memory_stats()
-    out, blocks, top_launches, path_shapes = run_q01_top(
-        jcols, jvalid, offsets, dev, K, card)
-    shapes += path_shapes
-    first, last = check_q01_top(out, blocks, jcols, offsets)
-    print(f"phase 17: q01's top 100 c_customer_id ({first} .. {last}) and "
-          f"each task's top 100 rows equal to Python's sort, peak "
+    q = JoinQuery("q01", {"store_returns": (rcols, rvalid),
+                          "customer": (ccols, cvalid)},
+                  {"store_returns": N_RETURN_MAPS,
+                   "customer": N_CUSTOMER_MAPS}, dev, K).run()
+    q.report(17, card)
+    shapes += q.shapes
+    q01_whole_launches = q.total_launches()
+    stores = check_q01([_blocks_numpy(q.blocks["broadcast:q01:3"],
+                                      ("avg_store_sk", "threshold"))],
+                       rcols, rvalid)
+    over = int(q01_ctr(rcols, rvalid)[4].sum())
+    if q.rows_written("shuffle:q01:5") != over:
+        raise AssertionError(f"q01: the broadcast join and filter kept "
+                             f"{q.rows_written('shuffle:q01:5')} rows, "
+                             f"numpy {over}")
+    per_part = check_q01_customer(q.blocks["shuffle:q01:6"], ccols, K)
+    jcols, jvalid, offsets = make_q01_join(rcols, rvalid, K)
+    first, last = check_q01_top(q.out(), q.blocks["shuffle:q01:7"], jcols,
+                                offsets)
+    print(f"phase 17: q01 whole: thresholds of {stores} stores, the "
+          f"broadcast join's {over} rows over them, customer rows per "
+          f"partition {per_part}, each task's top 100 of the sort-merge "
+          f"join's {len(jcols[0])} rows and the top 100 c_customer_id "
+          f"({first} .. {last}) equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    top_stage = q01_top_plans()[0]
-    profile_task("phase 17: q01 take-ordered task 0",
-                 lambda: map_task(0, jcols, jvalid, InProcessShuffleService(),
-                                  dev, top_stage, "q01_top", "join",
-                                  split=(int(offsets[0]), int(offsets[1]))),
-                 card)
-    del jcols, jvalid, blocks, rcols, rvalid
+    del q, jcols, jvalid, ccols, cvalid, rcols, rvalid
 
     scols, svalid = make_string_keys(args.seed,
                                      min(STRING_KEY_ROWS, args.rows))
@@ -2675,7 +3180,8 @@ def main() -> int:
           f"groups (one null) equal to Python, each in Spark's partition of "
           f"its key | {card}")
     del scols, svalid, outs
-    print(f"phases 16-18: {time.perf_counter() - new_phases:.1f} s | {card}")
+    check_join_types(dev, args.seed, card)
+    print(f"phases 16-19: {time.perf_counter() - new_phases:.1f} s | {card}")
 
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
@@ -2694,13 +3200,12 @@ def main() -> int:
             "q96": q96_launches["hash_partition_ids_i64"],
             "q88c": q88_launches["hash_partition_ids_i64"],
             "q01_stages": q01_launches["hash_partition_ids_i64"],
-            "q17m_stages": q17m_launches["hash_partition_ids_i64"],
+            "q17m": q17m_launches["hash_partition_ids_i64"],
             "float_keys": float_launches["hash_partition_ids_i64"],
-            "q39v_stages": q39v_launches["hash_partition_ids_i64"],
+            "q39v": q39v_launches["hash_partition_ids_i64"],
             "q09c": q09c_launches["hash_partition_ids_i64"],
             "q41d": q41d_launches["hash_partition_ids_i64"],
-            "q01_customer": customer_launches["hash_partition_ids_i64"],
-            "q01_top": top_launches["hash_partition_ids_i64"],
+            "q01": q01_whole_launches["hash_partition_ids_i64"],
             "string_keys": string_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2715,13 +3220,12 @@ def main() -> int:
             "q96": q96_launches["radix_bucket_hist"],
             "q88c": q88_launches["radix_bucket_hist"],
             "q01_stages": q01_launches["radix_bucket_hist"],
-            "q17m_stages": q17m_launches["radix_bucket_hist"],
+            "q17m": q17m_launches["radix_bucket_hist"],
             "float_keys": float_launches["radix_bucket_hist"],
-            "q39v_stages": q39v_launches["radix_bucket_hist"],
+            "q39v": q39v_launches["radix_bucket_hist"],
             "q09c": q09c_launches["radix_bucket_hist"],
             "q41d": q41d_launches["radix_bucket_hist"],
-            "q01_customer": customer_launches["radix_bucket_hist"],
-            "q01_top": top_launches["radix_bucket_hist"],
+            "q01": q01_whole_launches["radix_bucket_hist"],
             "string_keys": string_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
