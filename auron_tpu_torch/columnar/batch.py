@@ -212,6 +212,10 @@ class Batch:
                      ) -> "Batch":
         return Batch(schema, columns, self.num_rows, self.capacity)
 
+    def rename(self, names) -> "Batch":
+        return Batch(self.schema.rename(names), self.columns, self.num_rows,
+                     self.capacity)
+
     def mem_bytes(self) -> int:
         return sum(c.nbytes() for c in self.columns)
 

@@ -17,13 +17,16 @@ Over string and binary columns (`DeviceStringColumn`): a column
 reference passes its column through, a string literal is a broadcast
 string column (the JAX package's `values.py::literal_column`), built
 once per batch capacity and reused, CASE picks among string branches
-(`_case_strings`, the JAX package's), and `is_null` / `is_not_null`
-read the validity; any other kind with a string operand raises
+(`_case_strings`, the JAX package's), `is_null` / `is_not_null` read
+the validity, the comparisons `== != <=> < <= > >=` of two strings and
+`IN` over strings go through `exprs/strings.py` (a literal operand as
+one broadcast row), and `coalesce` / `nvl` take string arguments
+(`exprs/functions.py`).  Any other kind with a string operand, and a
+scalar function outside `exprs/functions.py`'s registry, raise
 NotImplementedError naming the kind where the expression is built
-(`check_string_operands`), as the string, scalar-function, row-id, UDF,
-subquery and bloom kinds do.  torch runs eagerly, so `build_evaluator`
-resolves the output types once and each call evaluates the trees
-directly.
+(`check_string_operands`), as the string, row-id, UDF, subquery and
+bloom kinds do.  torch runs eagerly, so `build_evaluator` resolves the
+output types once and each call evaluates the trees directly.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from auron_tpu_torch.columnar.batch import (
     Batch, Column, DeviceColumn, DeviceStringColumn, bucket_width, flat,
     string_col, string_width,
 )
+from auron_tpu_torch.exprs import functions as F
 from auron_tpu_torch.exprs.cast import cast_column
+from auron_tpu_torch.exprs.strings import string_cmp, string_eq
 from auron_tpu_torch.exprs.typing import (
     CMP_OPS, binary_result_type, infer_type, promote,
 )
@@ -93,6 +98,59 @@ def _string_literal(e: E.Literal, dt: DataType, ctx: EvalCtx
         (ctx.capacity,), len(raw), dtype=torch.int32, device=ctx.device),
         valid)
     return col
+
+
+def _string_literal_row(e: E.Literal, ctx: EvalCtx) -> DeviceStringColumn:
+    """A string literal as one row (`[1, W]` bytes), which broadcasts
+    against a column in a comparison; built once per device."""
+    key = (id(e), "row", ctx.device)
+    col = ctx.literals.get(key)
+    if col is None:
+        value = e.value
+        raw = b"" if value is None else \
+            value.encode("utf-8") if isinstance(value, str) else bytes(value)
+        data = torch.zeros(1, string_width(len(raw), e.dtype),
+                           dtype=torch.uint8)
+        if raw:
+            data[0, :len(raw)] = torch.frombuffer(bytearray(raw),
+                                                  dtype=torch.uint8)
+        col = ctx.literals[key] = DeviceStringColumn(
+            e.dtype, data.to(ctx.device),
+            torch.full((1,), len(raw), dtype=torch.int32, device=ctx.device),
+            torch.full((1,), value is not None, dtype=torch.bool,
+                       device=ctx.device))
+    return col
+
+
+def operand(x: E.Expr, ctx: EvalCtx) -> Column:
+    """An operand of a comparison: a string literal as one broadcast row
+    (`_string_literal_row`), anything else evaluated."""
+    if x.kind == "literal" and x.dtype.is_stringlike:
+        return _string_literal_row(x, ctx)
+    return evaluate(x, ctx)
+
+
+def _rows(t: torch.Tensor, ctx: EvalCtx) -> torch.Tensor:
+    """A per-row result at the batch capacity (two literal rows compared
+    give one row)."""
+    return t if t.shape[0] == ctx.capacity else t.expand(ctx.capacity)
+
+
+def _string_binary(op: str, lc: DeviceStringColumn, rc: DeviceStringColumn,
+                   ctx: EvalCtx) -> DeviceColumn:
+    """A comparison of two strings (the JAX package's `_string_binary`)."""
+    if op in ("==", "=", "<=>", "!="):
+        data = string_eq(lc, rc)
+        if op == "!=":
+            data = ~data
+    else:
+        c = string_cmp(lc, rc)
+        data = {"<": c < 0, "<=": c <= 0, ">": c > 0, ">=": c >= 0}[op]
+    both = lc.validity & rc.validity
+    if op == "<=>":     # null-safe equal: never null
+        data = torch.where(both, data, ~lc.validity & ~rc.validity)
+        return DeviceColumn(DataType.bool_(), _rows(data, ctx), ctx.ones())
+    return flat(DataType.bool_(), _rows(data, ctx), _rows(both, ctx))
 
 
 def _eval_literal(e: E.Literal, ctx: EvalCtx) -> Column:
@@ -174,7 +232,12 @@ def _int_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _eval_binary(e: E.BinaryExpr, ctx: EvalCtx) -> DeviceColumn:
     op = e.op
-    lc, rc = evaluate(e.left, ctx), evaluate(e.right, ctx)
+    if op in CMP_OPS:
+        lc, rc = operand(e.left, ctx), operand(e.right, ctx)
+        if isinstance(lc, DeviceStringColumn):
+            return _string_binary(op, lc, rc, ctx)
+    else:
+        lc, rc = evaluate(e.left, ctx), evaluate(e.right, ctx)
     if op in ("and", "or"):
         return kleene(op, lc, rc)
     both = lc.validity & rc.validity
@@ -312,9 +375,17 @@ def _eval_in_list(e: E.InList, ctx: EvalCtx) -> DeviceColumn:
     hit = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
     null_in_list = torch.zeros_like(hit)
     for v in e.values:
-        lv = evaluate(v, ctx)
-        t = promote(c.dtype, lv.dtype)
-        hit = hit | (compare("==", _as(c, t), _as(lv, t), t) & lv.validity)
+        if isinstance(c, DeviceStringColumn):
+            if _null_literal(v):
+                null_in_list = torch.ones_like(hit)
+                continue
+            lv = operand(v, ctx)
+            hit = hit | (string_eq(c, lv) & lv.validity)
+        else:
+            lv = evaluate(v, ctx)
+            t = promote(c.dtype, lv.dtype)
+            hit = hit | (compare("==", _as(c, t), _as(lv, t), t) &
+                         lv.validity)
         null_in_list = null_in_list | ~lv.validity
     data = ~hit if e.negated else hit
     return flat(DataType.bool_(), data, c.validity & (hit | ~null_in_list))
@@ -334,6 +405,8 @@ _DISPATCH: Dict[str, Callable[..., Column]] = {
     "in_list": _eval_in_list,
     "sc_and": _eval_sc,
     "sc_or": _eval_sc,
+    "scalar_function": lambda e, ctx: F.eval_scalar_function(
+        e, [evaluate(a, ctx) for a in e.args], ctx.ones()),
 }
 
 
@@ -348,13 +421,33 @@ def _operands(e: E.Expr) -> tuple:
         return (e.left, e.right)
     if e.kind == "in_list":
         return (e.child,) + tuple(e.values)
+    if e.kind == "scalar_function":
+        return tuple(e.args)
     return (e.child,)
+
+
+def _string_operands_ok(e: E.Expr, schema: Schema) -> bool:
+    """The kinds that take string operands: a comparison of two strings,
+    IN over a string with string or null values, `coalesce`/`nvl` of
+    strings or nulls."""
+    ts = [infer_type(x, schema) for x in _operands(e)]
+    if e.kind == "binary":
+        return e.op in CMP_OPS and all(t.is_stringlike for t in ts)
+    if e.kind == "in_list":
+        return ts[0].is_stringlike and all(
+            t.is_stringlike or _null_literal(v)
+            for t, v in zip(ts[1:], e.values))
+    if e.kind == "scalar_function":
+        return e.name in F.STRING_FUNCTIONS and all(
+            t.is_stringlike or _null_literal(a) for t, a in zip(ts, e.args))
+    return e.kind in ("is_null", "is_not_null")
 
 
 def check_string_operands(e: E.Expr, schema: Schema) -> None:
     """Raise NotImplementedError for a kind that would read a string
-    operand as flat values: only `is_null` / `is_not_null` take a string
-    operand, and a string CASE only string or null-literal values."""
+    operand as flat values (the kinds of `_string_operands_ok` take
+    them, and a string CASE takes string or null-literal values), and
+    for a scalar function the port has not (`functions.check_function`)."""
     if e.kind == "case":
         values = [br.then for br in e.branches] + \
             ([e.else_expr] if e.else_expr is not None else [])
@@ -374,14 +467,18 @@ def check_string_operands(e: E.Expr, schema: Schema) -> None:
                     f"a string CASE with a {t!r} branch is not in "
                     f"auron_tpu_torch yet")
         return
-    for x in _operands(e):
+    if e.kind == "scalar_function":
+        F.check_function(e)
+    ops = _operands(e)
+    for x in ops:
         check_string_operands(x, schema)
-        t = infer_type(x, schema)
-        if t.is_stringlike and e.kind not in ("is_null", "is_not_null"):
-            kind = f"binary {e.op}" if e.kind == "binary" else e.kind
-            raise NotImplementedError(
-                f"expression {kind!r} over {t!r} is not in "
-                f"auron_tpu_torch yet")
+    strings = [t for t in (infer_type(x, schema) for x in ops)
+               if t.is_stringlike]
+    if strings and not _string_operands_ok(e, schema):
+        kind = f"binary {e.op}" if e.kind == "binary" else e.kind
+        raise NotImplementedError(
+            f"expression {kind!r} over {strings[0]!r} is not in "
+            f"auron_tpu_torch yet")
 
 
 class CompiledExprs:

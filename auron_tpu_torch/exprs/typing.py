@@ -84,5 +84,15 @@ def infer_type(expr: E.Expr, schema: Schema) -> DataType:
                 continue
             out = t if out is None or out == t else promote(out, t)
         return out if out is not None else DataType.null()
+    if k == "scalar_function":
+        if expr.return_type.id != TypeId.NULL:
+            return expr.return_type
+        # round keeps its argument's type; coalesce takes the first
+        # argument that is not a null literal
+        for a in expr.args[:1] if expr.name == "round" else expr.args:
+            t = infer_type(a, schema)
+            if t.id != TypeId.NULL:
+                return t
+        return DataType.null()
     raise NotImplementedError(
         f"expression {k!r} is not in auron_tpu_torch yet")

@@ -2,9 +2,9 @@
 
 The kinds the port evaluates: column reference, literal, the binary
 node (arithmetic, bitwise, comparison and Kleene logic), null tests,
-not, negative, cast and try_cast, case, in-list and the short-circuit
-and/or, plus the aggregate call and the sort order of a Sort or a range
-partitioning.  Field names, defaults and `kind` tags are the JAX
+not, negative, cast and try_cast, case, in-list, the scalar function
+call and the short-circuit and/or, plus the aggregate call and the sort
+order of a Sort or a range partitioning.  Field names, defaults and `kind` tags are the JAX
 package's, so their JSON is the same.
 """
 
@@ -116,6 +116,16 @@ class InList(Expr):
     child: Expr = None  # type: ignore[assignment]
     values: Tuple[Expr, ...] = ()
     negated: bool = False
+
+
+@register
+@dataclass(frozen=True)
+class ScalarFunctionCall(Expr):
+    """A named scalar function (exprs/functions.py holds the port's)."""
+    kind: ClassVar[str] = "scalar_function"
+    name: str = ""
+    args: Tuple[Expr, ...] = ()
+    return_type: DataType = field(default_factory=DataType.null)
 
 
 @register

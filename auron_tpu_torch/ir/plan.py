@@ -1,9 +1,11 @@
 """Physical plan IR nodes (counterpart of auron_tpu/ir/plan.py).
 
-The nodes of the port's stages: the FFI and IPC readers, projection,
-filter, limit, aggregation, sort, the joins (sort-merge, shuffled hash,
-broadcast and its build-map stage), the RSS shuffle writer with its
-partitioning, and the `TaskDefinition` a front end ships.  Fields and
+The nodes of the port's stages: the FFI and IPC readers, empty
+partitions, projection, filter, limit, aggregation, expand, the window
+(its function calls and group limit), rename, coalesce batches, sort,
+the joins (sort-merge, shuffled hash, broadcast and its build-map
+stage), the union, the RSS shuffle writer with its partitioning, and
+the `TaskDefinition` a front end ships.  Fields and
 `kind` tags are the JAX package's, so their JSON is the same.
 """
 
@@ -14,7 +16,7 @@ from typing import Any, ClassVar, Optional, Tuple
 
 from auron_tpu_torch.ir.expr import AggExpr, Expr, SortExpr
 from auron_tpu_torch.ir.node import Node, register
-from auron_tpu_torch.ir.schema import Schema
+from auron_tpu_torch.ir.schema import DataType, Schema
 
 
 @dataclass(frozen=True)
@@ -56,6 +58,14 @@ class FFIReader(PlanNode):
 
 @register
 @dataclass(frozen=True)
+class EmptyPartitions(PlanNode):
+    kind: ClassVar[str] = "empty_partitions"
+    schema: Schema = None  # type: ignore[assignment]
+    num_partitions: int = 1
+
+
+@register
+@dataclass(frozen=True)
 class Projection(PlanNode):
     kind: ClassVar[str] = "projection"
     child: PlanNode = None  # type: ignore[assignment]
@@ -92,6 +102,66 @@ class Agg(PlanNode):
     aggs: Tuple[AggExpr, ...] = ()
     agg_names: Tuple[str, ...] = ()
     supports_partial_skipping: bool = False
+
+
+@register
+@dataclass(frozen=True)
+class Expand(PlanNode):
+    """Grouping-sets projections: one copy of each input row per
+    projection list."""
+    kind: ClassVar[str] = "expand"
+    child: PlanNode = None  # type: ignore[assignment]
+    projections: Tuple[Tuple[Expr, ...], ...] = ()
+    names: Tuple[str, ...] = ()
+    types: Tuple[DataType, ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class WindowGroupLimit(Node):
+    """Top-k rows per window partition by a rank function."""
+    kind: ClassVar[str] = "window_group_limit"
+    k: int = 0
+    rank_fn: str = "row_number"   # row_number | rank | dense_rank
+
+
+@register
+@dataclass(frozen=True)
+class WindowFuncCall(Node):
+    kind: ClassVar[str] = "window_func_call"
+    fn: str = "row_number"                 # WindowFunction value
+    args: Tuple[Expr, ...] = ()
+    agg: Optional[AggExpr] = None          # for fn == "agg"
+    return_type: DataType = None  # type: ignore[assignment]
+    name: str = ""
+
+
+@register
+@dataclass(frozen=True)
+class Window(PlanNode):
+    kind: ClassVar[str] = "window"
+    child: PlanNode = None  # type: ignore[assignment]
+    window_funcs: Tuple[WindowFuncCall, ...] = ()
+    partition_by: Tuple[Expr, ...] = ()
+    order_by: Tuple[SortExpr, ...] = ()
+    group_limit: Optional[WindowGroupLimit] = None
+    output_window_cols: bool = True
+
+
+@register
+@dataclass(frozen=True)
+class RenameColumns(PlanNode):
+    kind: ClassVar[str] = "rename_columns"
+    child: PlanNode = None  # type: ignore[assignment]
+    names: Tuple[str, ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class CoalesceBatches(PlanNode):
+    kind: ClassVar[str] = "coalesce_batches"
+    child: PlanNode = None  # type: ignore[assignment]
+    target_batch_size: int = 0    # 0 = use config default
 
 
 @register
@@ -160,6 +230,27 @@ class BroadcastJoin(PlanNode):
     broadcast_side: str = "right"
     cached_build_hash_map_id: str = ""
     existence_output_name: str = "exists"
+
+
+@register
+@dataclass(frozen=True)
+class UnionInput(Node):
+    """Partition `partition` of `child` feeds partition `out_partition`
+    of the union."""
+    kind: ClassVar[str] = "union_input"
+    child: PlanNode = None  # type: ignore[assignment]
+    partition: int = 0
+    out_partition: int = 0
+
+
+@register
+@dataclass(frozen=True)
+class Union(PlanNode):
+    kind: ClassVar[str] = "union"
+    inputs: Tuple[UnionInput, ...] = ()
+    schema: Schema = None  # type: ignore[assignment]
+    num_partitions: int = 1
+    cur_partition: int = 0
 
 
 @register

@@ -144,3 +144,10 @@ class Schema:
 
     def field(self, name: str) -> Field:
         return self.fields[self.index_of(name)]
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(f.name for f in self.fields)
+
+    def rename(self, names) -> "Schema":
+        return Schema(tuple(Field(n, f.dtype, f.nullable)
+                            for n, f in zip(names, self.fields)))

@@ -64,17 +64,6 @@ def join_output_schema(left: Schema, right: Schema, join_type: str,
     raise ValueError(f"unknown join type {join_type!r}")
 
 
-def key_evaluator(keys, schema: Schema):
-    """The compiled join keys of one side; refuses string keys."""
-    ev = build_evaluator(keys, schema)
-    for t in ev.out_types:
-        if t.is_stringlike:
-            raise NotImplementedError(
-                f"a join on a {t!r} key needs string_eq (ROADMAP Queue 1 "
-                f"item 3), not in auron_tpu_torch yet")
-    return ev
-
-
 class _HashJoinBase(Operator):
     """Probe-side streaming join; build side materialized on the device."""
 
@@ -93,8 +82,8 @@ class _HashJoinBase(Operator):
             raise ValueError(f"{join_type} requires build_side=right")
         if join_type in ("right_semi", "right_anti") and self.probe_is_left:
             raise ValueError(f"{join_type} requires build_side=left")
-        self._left_keys = key_evaluator(on.left_keys, left.schema)
-        self._right_keys = key_evaluator(on.right_keys, right.schema)
+        self._left_keys = build_evaluator(on.left_keys, left.schema)
+        self._right_keys = build_evaluator(on.right_keys, right.schema)
         self._build_i = 0 if build_side == "left" else 1
         self._build_keys = self._left_keys if build_side == "left" \
             else self._right_keys
@@ -285,7 +274,7 @@ class BroadcastJoinBuildHashMapExec(Operator):
         super().__init__(child.schema, [child])
         self.keys = tuple(keys)
         self.cache_id = cache_id
-        self._key_eval = key_evaluator(self.keys, child.schema)
+        self._key_eval = build_evaluator(self.keys, child.schema)
 
     def build_table(self, ctx: TaskContext) -> BuildTable:
         batches = [b for b in self.child_stream(ctx) if b.num_rows]

@@ -22,8 +22,9 @@ and every NaN as the canonical NaN, and `verify_pairs` holds two NaNs
 equal.  The JAX package hashes a NaN's own bits and compares with `==`,
 so no NaN key matches there (ROADMAP Queue 3).
 
-String join keys need a device string equality (`string_eq`, ROADMAP
-Queue 1 item 3): the operators refuse them where they are built.
+String keys hash as Spark's `hashUnsafeBytes` (`hash_bytes`, over the
+same [2, rows] seed) and verify by `string_eq`, the two sides padded to
+the wider width bucket.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from auron_tpu_torch.columnar.batch import (
     Batch, Column, DeviceStringColumn, null_column,
 )
 from auron_tpu_torch.exprs.hashing import hash_column
+from auron_tpu_torch.exprs.strings import string_eq
 from auron_tpu_torch.ir.schema import Schema, TypeId
 from auron_tpu_torch.ops.radix_sort import SIGN64, radix_sort_indices
 from auron_tpu_torch.ops.strategy import join_probe_strategy, sort_strategy
@@ -116,10 +118,10 @@ def probe_ranges(sorted_hashes: torch.Tensor, probe_hash: torch.Tensor,
 
 
 def _keys_equal(p: Column, b: Column) -> torch.Tensor:
-    """Row-wise key equality, Spark's for floats: -0.0 = 0.0, NaN = NaN."""
+    """Row-wise key equality, Spark's for floats: -0.0 = 0.0, NaN = NaN;
+    strings by their bytes and lengths."""
     if isinstance(p, DeviceStringColumn):
-        raise NotImplementedError(
-            "string join keys need string_eq, not in auron_tpu_torch yet")
+        return string_eq(p, b)
     eq = p.data == b.data
     if p.dtype.id == TypeId.FLOAT64:
         eq = eq | (torch.isnan(p.data) & torch.isnan(b.data))

@@ -15,7 +15,12 @@ exactly as the inputs are ordered, Spark's order with -0.0 equal to 0.0
 and every NaN equal and last.  The JAX package compares host values
 with an order of its own (`_f64_orderable`: -0.0 before 0.0, NaNs split
 by sign, ROADMAP Queue 3 item 3), which against the port's sort would
-cut a key group across two windows.  On the device a batch's rows are
+cut a key group across two windows.  A string key's word count follows
+its width bucket, and the two sides may come in different buckets, so
+each string key's byte words are padded to the widest bucket
+(`auron.string.device.max.width`) with the word of 8 zero bytes before
+its length word, which keeps the order (`key_words`); the padding words
+are host constants, never tensors.  On the device a batch's rows are
 compared with the frontier word by word; since a batch is sorted, the
 rows below the frontier are a prefix of it, so a split reads one count.
 
@@ -28,17 +33,34 @@ port's memory manager (ROADMAP Queue 1 item 9).
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Iterator, List, Optional, Sequence, Tuple
+from typing import Deque, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from auron_tpu_torch.columnar.batch import (
     Batch, Column, DeviceColumn, DeviceStringColumn,
 )
-from auron_tpu_torch.ops.sort_keys import encode_sort_keys
+from auron_tpu_torch.config import conf
+from auron_tpu_torch.ops.sort_keys import encode_key_column
 
 HostKey = Tuple[int, ...]
 Orders = Sequence[Tuple[bool, bool]]
+Word = Union[torch.Tensor, int]
+
+
+def key_words(key_cols: List[Column], orders: Orders) -> List[Word]:
+    """The keys' sort-key words, each string key's byte words padded to
+    the widest width bucket with the (host constant) word of 8 zero
+    bytes, ascending or descending, before its length word."""
+    max_words = (int(conf.get("auron.string.device.max.width")) + 7) // 8
+    words: List[Word] = []
+    for col, (asc, nf) in zip(key_cols, orders):
+        ws: List[Word] = list(encode_key_column(col, asc, nf))
+        if isinstance(col, DeviceStringColumn):
+            zero = -(1 << 63) if asc else (1 << 63) - 1
+            ws = ws[:-1] + [zero] * (max_words - (len(ws) - 2)) + ws[-1:]
+        words.extend(ws)
+    return words
 
 
 def cmp_keys(a: HostKey, b: HostKey) -> int:
@@ -50,24 +72,34 @@ def cmp_keys(a: HostKey, b: HostKey) -> int:
 def host_keys_of_rows(key_cols: List[Column], rows: List[int],
                       orders: Orders) -> List[HostKey]:
     """The word tuples of a few rows' keys, in one device read."""
-    words = encode_sort_keys(key_cols, orders)
-    idx = torch.tensor(rows, dtype=torch.int64, device=words[0].device)
-    vals = torch.stack([w[idx] for w in words], 1).tolist()
-    return [tuple(v) for v in vals]
+    words = key_words(key_cols, orders)
+    tensors = [w for w in words if isinstance(w, torch.Tensor)]
+    idx = torch.tensor(rows, dtype=torch.int64, device=tensors[0].device)
+    vals = torch.stack([w[idx] for w in tensors], 1).tolist()
+    out = []
+    for v in vals:
+        it = iter(v)
+        out.append(tuple(next(it) if isinstance(w, torch.Tensor) else w
+                         for w in words))
+    return out
 
 
 def rows_below_frontier(key_cols: List[Column], frontier: HostKey,
                         orders: Orders) -> torch.Tensor:
     """bool[capacity]: the row's key is strictly below the frontier
     (word-lexicographic against the frontier's words)."""
-    lt: Optional[torch.Tensor] = None
-    eq: Optional[torch.Tensor] = None
-    for w, f in zip(encode_sort_keys(key_cols, orders), frontier):
-        if lt is None:
-            lt, eq = w < f, w == f
-        else:
+    rows = key_cols[0].validity.shape[0]
+    dev = key_cols[0].validity.device
+    lt = torch.zeros(rows, dtype=torch.bool, device=dev)
+    eq: Union[torch.Tensor, bool] = True
+    for w, f in zip(key_words(key_cols, orders), frontier):
+        if isinstance(w, torch.Tensor):
             lt = lt | (eq & (w < f))
             eq = eq & (w == f)
+        elif w != f:        # a padding word: the same for every row
+            if w < f:
+                lt = lt | eq
+            return lt
     return lt
 
 

@@ -9,7 +9,10 @@ from typing import Callable, Dict
 from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ops.agg.exec import AggExec
 from auron_tpu_torch.ops.base import Operator
-from auron_tpu_torch.ops.basic import FilterExec, LimitExec, ProjectExec
+from auron_tpu_torch.ops.basic import (
+    CoalesceBatchesExec, EmptyPartitionsExec, ExpandExec, FilterExec,
+    LimitExec, ProjectExec, RenameColumnsExec, UnionExec,
+)
 from auron_tpu_torch.ops.joins import (
     BroadcastJoinBuildHashMapExec, BroadcastJoinExec, HashJoinExec,
     SortMergeJoinExec,
@@ -17,6 +20,7 @@ from auron_tpu_torch.ops.joins import (
 from auron_tpu_torch.ops.scan.ipc import FFIReaderExec, IpcReaderExec
 from auron_tpu_torch.ops.shuffle.writer import RssShuffleWriterExec
 from auron_tpu_torch.ops.sort import SortExec
+from auron_tpu_torch.ops.window.exec import WindowExec
 
 
 class PhysicalPlanner:
@@ -24,6 +28,8 @@ class PhysicalPlanner:
         self._arms: Dict[str, Callable[..., Operator]] = {
             "ffi_reader": lambda n: FFIReaderExec(n.schema, n.resource_id),
             "ipc_reader": lambda n: IpcReaderExec(n.schema, n.resource_id),
+            "empty_partitions": lambda n: EmptyPartitionsExec(
+                n.schema, n.num_partitions),
             "projection": self._projection,
             "filter": lambda n: FilterExec(self.create_plan(n.child),
                                            n.predicates),
@@ -33,6 +39,18 @@ class PhysicalPlanner:
                 self.create_plan(n.child), n.exec_mode, n.grouping,
                 n.grouping_names, n.aggs, n.agg_names,
                 n.supports_partial_skipping),
+            "expand": lambda n: ExpandExec(
+                self.create_plan(n.child), n.projections, n.names, n.types),
+            "window": lambda n: WindowExec(
+                self.create_plan(n.child), n.window_funcs, n.partition_by,
+                n.order_by, n.group_limit, n.output_window_cols),
+            "rename_columns": lambda n: RenameColumnsExec(
+                self.create_plan(n.child), n.names),
+            "coalesce_batches": lambda n: CoalesceBatchesExec(
+                self.create_plan(n.child), n.target_batch_size),
+            "union": lambda n: UnionExec(
+                [self.create_plan(i.child) for i in n.inputs], n.schema,
+                [(i.out_partition, i.partition) for i in n.inputs]),
             "sort": lambda n: SortExec(
                 self.create_plan(n.child), n.sort_exprs, n.fetch_limit,
                 n.fetch_offset),

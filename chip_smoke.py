@@ -99,8 +99,8 @@ the sources in this checkout.  Phases, each fatal on failure:
     groups joined in Python, the histogram on every writer batch and no
     hash-pid (two keys); print the seconds phases 13-14 took;
 15. (run last) hold each kernel bit-exact against its plain version at
-    every (rows, n_parts) the writers of phases 3-14 and 16-18 gave it,
-    as their metrics report them;
+    every (rows, n_parts) the writers of phases 3-14, 16-18 and 21-24
+    gave it, as their metrics report them;
 16. run TPC-DS q09c and q41d whole as the converter lowers them, with
     string columns on the card: q09c over the store_sales rows (8 map
     tasks: Projection of a nested CASE into the string band "1-20",
@@ -135,7 +135,41 @@ the sources in this checkout.  Phases, each fatal on failure:
     rows (~16 rows a key, an eighth of the keys unmatched, nulls, a
     string payload), probe batches spanning many pair chunks, and with
     an empty build side; check each against the port's own run on the
-    CPU row for row and numpy's row count.
+    CPU row for row and numpy's row count; then the same on string keys
+    of 0-40 bytes (2^14 rows a side), the left side's at most 8 bytes
+    and the right side's up to 40, so the build and the probe side lie
+    in different width buckets;
+20. over phase 18's string keys (k, and t the keys a row later) with
+    phase 3's price and quantity: every comparison (== != <=> < <= > >=)
+    of k with t and with a literal, IN with and without a null, NOT IN,
+    round at scales -2, 0, 2 (and 6 of x / q) over float64, int32 and
+    int64, coalesce and nvl over floats, ints and strings, and a Filter
+    by a string order and a NOT IN, on the card and on the CPU: bools,
+    ints and strings exact, round's float64 bits exact or within the
+    ulps it prints;
+21. run TPC-DS q13a whole (`JoinQuery`): date_dim's rows of 2001 and
+    store's rows of TN, CA, TX and OH (SF-10 store, 102 rows, s_state
+    STATES[sk % 10]) broadcast; 8 tasks over the store_sales rows (sold
+    date, store, quantity, price, net profit) -> two broadcast joins ->
+    partial Average, Average, Sum by s_state -> hash(4) on the string;
+    final -> Sort fetch 100 -> single; check the 4 groups against numpy;
+22. run q65w whole: 8 tasks of partial Sum of price by (store, item)
+    (item uniform over the 102,000 SF-10 items) -> hash(4) on both; 4
+    tasks of final Sum -> hash(4) by ss_store_sk (hash-pid); 4 window
+    tasks, rank() over (store, ordered by revenue desc, item) -> Filter
+    rk <= 5 -> Sort fetch 200 -> single; check the top 5 of each store
+    and their ranks against numpy; profile window task 0;
+23. run q27r whole: item (i_category CATEGORIES[sk % 10]) and store
+    broadcast; 8 tasks -> two broadcast joins with string payloads ->
+    Expand into 3 grouping sets (null string literals) -> partial
+    Average and Count by (category, state, grouping id) -> hash(4) on
+    two strings and an int; check the 111 groups against numpy;
+24. run q33b whole: per channel (store_sales 28,800,991 rows, 8
+    partitions; catalog_sales 14,401,261, 4; web_sales 7,197,566, 2)
+    broadcast joins with date_dim's rows of March 1999 and item's
+    i_manufact_id -> Projection, under one Union of 14 partitions whose
+    tasks stream their assignments -> partial Sum by i_manufact_id ->
+    hash(4); final -> Sort fetch 100; check the sums against numpy.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -461,9 +495,10 @@ def launch_floor_ms(dev) -> float:
     return profiled_ms(lambda: x.add_(1), kernel="elementwise")
 
 
-def profile_task(label: str, fn, card: str) -> None:
+def profile_task(label: str, fn, card: str, batches: int = 0) -> None:
     """Where one task's time goes: wall time, summed device time and the
-    device's idle share, the top kernels and host ops."""
+    device's idle share, the kernel launches (per batch, given the
+    task's `batches`), the top kernels and host ops."""
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -485,9 +520,15 @@ def profile_task(label: str, fn, card: str) -> None:
     parse_s = time.perf_counter() - t
     busy = _device_us(avgs) / 1e6
     phase = label.split(":")[0]
+    launches = sum(e.count for e in avgs
+                   if e.device_type == DeviceType.CPU and
+                   e.key.startswith("cudaLaunchKernel"))
+    per = f", {launches / batches:.1f} a batch of {batches}" if batches \
+        else ""
     print(f"{label} under the profiler: wall {wall:.4f} s, "
-          f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f} "
-          f"(trace read in {parse_s:.1f} s) | {card}")
+          f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}, "
+          f"{launches} kernel launches{per} (trace read in {parse_s:.1f} "
+          f"s) | {card}")
     dev_rows = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
                       key=lambda e: -(getattr(e, "self_device_time_total",
                                               0.0) or 0.0))[:8]
@@ -886,14 +927,14 @@ def time_reduce_sort(svc, dev, card: str):
 
 
 def profile_sort_tasks(cols, valid, svc, plans, dev, card: str) -> None:
-    """Phase 9: a quarter of sort map task 0 (the first of 32 splits:
-    reading a whole task's trace took 112-168 s on an H100) and one sort
-    reduce task."""
+    """Phase 9: an eighth of sort map task 0 (the first of 64 splits:
+    reading a whole task's trace took 112-168 s on an H100, a quarter's
+    41-48 s) and one sort reduce task."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     scratch = InProcessShuffleService()
-    profile_task("phase 9: sort map task 0, its first quarter",
+    profile_task("phase 9: sort map task 0, its first eighth",
                  lambda: map_task(0, cols, valid, scratch, dev, plans[0],
-                                  "sort", n_maps=4 * N_MAPS), card)
+                                  "sort", n_maps=8 * N_MAPS), card)
     profile_task("phase 9: sort reduce task 0",
                  lambda: sort_reduce_task(0, svc, plans[1], dev), card)
 
@@ -2191,16 +2232,23 @@ DATE_DIM_FIRST_SK = 2_415_022
 GRID_FIRST_SK = 2_450_815            # `it/datagen.py`'s 1998-01-01
 Q39V_MONTHS = (1, 2, 3)              # the inventory snapshots scanned
 N_INVENTORY_MAPS = 4
+SLICE9_QUERIES = ("q13a", "q65w", "q27r", "q33b")
 
 
 def _replaced(node, swap):
     """The port plan with every node `swap` maps (by its result for the
-    node, None keeps it) replaced, children first."""
+    node, None keeps it) replaced, children first (a union's inputs
+    too)."""
     import dataclasses
     from auron_tpu_torch.ir import plan as P
+
+    def child(v):
+        return isinstance(v, (P.PlanNode, P.UnionInput)) or (
+            isinstance(v, tuple) and v and isinstance(v[0], P.UnionInput))
+    if isinstance(node, tuple):
+        return tuple(_replaced(x, swap) for x in node)
     kids = {f.name: _replaced(getattr(node, f.name), swap)
-            for f in dataclasses.fields(node)
-            if isinstance(getattr(node, f.name), P.PlanNode)}
+            for f in dataclasses.fields(node) if child(getattr(node, f.name))}
     if kids:
         node = dataclasses.replace(node, **kids)
     new = swap(node)
@@ -2256,11 +2304,11 @@ def _bhj(left, broadcast, schema, lkey, rkey, cache_id):
         cached_build_hash_map_id=cache_id)
 
 
-def join_query_plans(name: str) -> dict:
-    """The stages of q01, q17m or q39v whole in the port's IR, as the
-    converter lowers them (tests/test_torch_corpus_joins.py holds them
-    to its JSON), in the order they run: {resource id: plan}, then
-    "root".  Ids are the converter's with the query's name for its plan
+def join_query_plans(name: str, parts=None) -> dict:
+    """The stages of q01, q17m, q39v (or, `slice9_plans`, q13a, q65w,
+    q27r and q33b) whole in the port's IR, as the converter lowers them
+    (tests/test_torch_corpus_joins.py holds them to its JSON), in the
+    order they run: {resource id: plan}, then "root".  Ids are the converter's with the query's name for its plan
     hash ("shuffle:q01:5", "broadcast:q01:3", "bhm:q01:4"); a shuffle
     stage is its RssShuffleWriter, a broadcast stage the plan whose
     batches it collects; each scan is an FFIReader of its table."""
@@ -2318,6 +2366,8 @@ def join_query_plans(name: str) -> dict:
             rid("shuffle", 3): _ipc_renamed(
                 s2, {"shuffle_read": rid("shuffle", 2)}),
             "root": _ipc_renamed(s3, {"shuffle_read": rid("shuffle", 3)})}
+    if name in SLICE9_QUERIES:
+        return slice9_plans(name, parts)
     if name != "q39v":
         raise ValueError(f"no join query {name!r}")
     i32 = DataType.int32()
@@ -2355,6 +2405,434 @@ def join_query_plans(name: str) -> dict:
     out[rid("shuffle", 8)] = _reader_replaced(stage, "join", join)
     out["root"] = _ipc_renamed(top, {"shuffle_read": rid("shuffle", 8)})
     return out
+
+
+# ---------------------------------------------------------------------------
+# TPC-DS q13a, q65w, q27r and q33b whole (phases 21 to 24)
+# ---------------------------------------------------------------------------
+
+SF10_CATALOG_SALES_ROWS = 14_401_261  # TPC-DS catalog_sales at SF 10
+SF10_WEB_SALES_ROWS = 7_197_566      # TPC-DS web_sales at SF 10
+N_CATALOG_MAPS = 4                   # half the store_sales splits
+N_WEB_MAPS = 2                       # a quarter
+STATES = ("TN", "CA", "TX", "OH", "GA", "MI", "NY", "WA", "IL", "FL")
+CATEGORIES = ("Books", "Home", "Electronics", "Jewelry", "Music", "Shoes",
+              "Sports", "Women", "Men", "Children")
+Q13A_STATES = ("TN", "CA", "TX", "OH")
+Q13A_YEAR = 2001
+Q33B_YEAR_MOY = (1999, 3)
+Q65W_TOP = 5
+Q13A_SALES = (("ss_sold_date_sk", "i64"), ("ss_store_sk", "i64"),
+              ("ss_quantity", "i32"), ("ss_sales_price", "f64"),
+              ("ss_net_profit", "f64"))
+Q65W_SALES = (("ss_item_sk", "i64"), ("ss_store_sk", "i64"),
+              ("ss_sales_price", "f64"), ("ss_quantity", "i32"))
+Q27R_SALES = (("ss_item_sk", "i64"), ("ss_store_sk", "i64"),
+              ("ss_quantity", "i32"))
+STORE = (("s_store_sk", "i64"), ("s_state", "str"))
+ITEM_CATEGORY = (("i_item_sk", "i64"), ("i_category", "str"))
+ITEM_MANUFACT = (("i_item_sk", "i64"), ("i_manufact_id", "i32"))
+DATE_YEAR = (("d_date_sk", "i64"), ("d_year", "i32"))
+DATE_YEAR_MOY = (("d_date_sk", "i64"), ("d_year", "i32"), ("d_moy", "i32"))
+# q33b's channels: (table, column prefix)
+CHANNELS = (("store_sales", "ss"), ("catalog_sales", "cs"),
+            ("web_sales", "ws"))
+
+
+def channel_schema(prefix: str):
+    return _schema((f"{prefix}_sold_date_sk", "i64"),
+                   (f"{prefix}_item_sk", "i64"),
+                   (f"{prefix}_ext_sales_price", "f64"))
+
+
+def _agg_of(child, mode, keys, aggs, names):
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    return P.Agg(child=child, exec_mode=mode,
+                 grouping=tuple(E.col(k) for k in keys),
+                 grouping_names=tuple(keys), aggs=aggs, agg_names=names)
+
+
+def _states_of(key_fields, aggs, names):
+    """The partial states' schema of an Agg: its keys, then per aggregate
+    avg -> (#sum, #count), sum -> #sum, count -> #count (counts never
+    null)."""
+    fields = list(key_fields)
+    for a, n in zip(aggs, names):
+        t = {"FLOAT64": "f64", "INT64": "i64", "INT32": "i32"}[
+            a.return_type.id.name]
+        if a.fn in ("avg", "sum"):
+            fields.append((f"{n}#sum", "f64" if a.fn == "avg" else t))
+        if a.fn in ("avg", "count"):
+            fields.append((f"{n}#count", "i64", False))
+    return _schema(*fields)
+
+
+def _two_phase(name, child, keys, key_fields, aggs, names, order, limit,
+               start: int):
+    """The converter's two-phase aggregation under a take-ordered, its
+    stages under ids `start` (partial -> hash(4) on the keys) and
+    `start + 1` (final -> Sort fetch -> single), then the root."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    s1, s2 = f"shuffle:{name}:{start}", f"shuffle:{name}:{start + 1}"
+    partial = _writer(_agg_of(child, "partial", keys, aggs, names), "hash",
+                      N_AGG_PARTS, tuple(E.col(k) for k in keys))
+    final = _agg_of(P.IpcReader(schema=_states_of(key_fields, aggs, names),
+                                resource_id=s1), "final", keys, aggs, names)
+    out = _schema(*(tuple(key_fields) + tuple(
+        (n, {"FLOAT64": "f64", "INT64": "i64"}[a.return_type.id.name])
+        for a, n in zip(aggs, names))))
+    stage, top = _take_ordered(final, order, limit, out, [f.name for f in out])
+    return {s1: partial, s2: stage,
+            "root": _ipc_renamed(top, {"shuffle_read": s2})}
+
+
+def slice9_plans(name: str, parts=None) -> dict:
+    """The stages of q13a, q65w, q27r or q33b whole in the port's IR, as
+    the converter lowers them (tests/test_torch_corpus_new.py holds them
+    to its JSON), in the order they run, ids as `join_query_plans`'.
+    q33b's union takes `parts[table]` partitions of each channel's scan
+    (the converter's: one a file group)."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    i32, i64, f64 = DataType.int32(), DataType.int64(), DataType.float64()
+    st = DataType.string()
+
+    def rid(kind, n):
+        return f"{kind}:{name}:{n}"
+
+    def lit(v, t):
+        return E.Literal(value=v, dtype=t)
+
+    def eq(c, v, t=i32):
+        return E.BinaryExpr(left=E.col(c), op="==", right=lit(v, t))
+
+    def scan(cols, table):
+        return P.FFIReader(schema=_schema(*cols), resource_id=table)
+
+    def asc(c):
+        return E.SortExpr(child=E.col(c), asc=True, nulls_first=True)
+
+    def fn(f, child, t):
+        return E.AggExpr(fn=f, children=(child,), return_type=t)
+    if name == "q13a":
+        dates = P.Filter(child=scan(DATE_YEAR, "date_dim"),
+                         predicates=(eq("d_year", Q13A_YEAR),))
+        stores = P.Filter(child=scan(STORE, "store"), predicates=(
+            E.InList(child=E.col("s_state"),
+                     values=tuple(lit(x, st) for x in Q13A_STATES)),))
+        join = _bhj(_bhj(scan(Q13A_SALES, "store_sales"),
+                         rid("broadcast", 0), _schema(*DATE_YEAR),
+                         "ss_sold_date_sk", "d_date_sk", rid("bhm", 1)),
+                    rid("broadcast", 2), _schema(*STORE), "ss_store_sk",
+                    "s_store_sk", rid("bhm", 3))
+        aggs = (fn("avg", E.Cast(child=E.col("ss_quantity"), dtype=f64), f64),
+                fn("avg", E.col("ss_sales_price"), f64),
+                fn("sum", E.col("ss_net_profit"), f64))
+        return {rid("broadcast", 0): dates, rid("broadcast", 2): stores,
+                **_two_phase(name, join, ("s_state",), (("s_state", "str"),),
+                             aggs, ("avg_q", "avg_p", "profit"),
+                             (asc("s_state"),), 100, 4)}
+    if name == "q65w":
+        keys = ("ss_store_sk", "ss_item_sk")
+        rev = (fn("sum", E.col("ss_sales_price"), f64),)
+        states = _states_of((("ss_store_sk", "i64"), ("ss_item_sk", "i64")),
+                            rev, ("revenue",))
+        final = _agg_of(P.IpcReader(schema=states,
+                                    resource_id=rid("shuffle", 0)),
+                        "final", keys, rev, ("revenue",))
+        window = P.Window(
+            child=P.IpcReader(schema=_schema(
+                ("ss_store_sk", "i64"), ("ss_item_sk", "i64"),
+                ("revenue", "f64")), resource_id=rid("shuffle", 1)),
+            window_funcs=(P.WindowFuncCall(fn="rank", return_type=i32,
+                                           name="rk"),),
+            partition_by=(E.col("ss_store_sk"),),
+            order_by=(E.SortExpr(child=E.col("revenue"), asc=False,
+                                 nulls_first=False), asc("ss_item_sk")))
+        top5 = P.Filter(child=window, predicates=(E.BinaryExpr(
+            left=E.col("rk"), op="<=", right=lit(Q65W_TOP, i32)),))
+        out = _schema(("ss_store_sk", "i64"), ("ss_item_sk", "i64"),
+                      ("revenue", "f64"), ("rk", "i32"))
+        stage, top = _take_ordered(
+            top5, (asc("ss_store_sk"), asc("rk"), asc("ss_item_sk")), 200,
+            out, [f.name for f in out])
+        return {
+            rid("shuffle", 0): _writer(
+                _agg_of(scan(Q65W_SALES, "store_sales"), "partial", keys,
+                        rev, ("revenue",)),
+                "hash", N_AGG_PARTS, tuple(E.col(k) for k in keys)),
+            rid("shuffle", 1): _writer(final, "hash", N_AGG_PARTS,
+                                       (E.col("ss_store_sk"),)),
+            rid("shuffle", 2): stage,
+            "root": _ipc_renamed(top, {"shuffle_read": rid("shuffle", 2)})}
+    if name == "q27r":
+        join = _bhj(_bhj(scan(Q27R_SALES, "store_sales"),
+                         rid("broadcast", 0), _schema(*ITEM_CATEGORY),
+                         "ss_item_sk", "i_item_sk", rid("bhm", 1)),
+                    rid("broadcast", 2), _schema(*STORE), "ss_store_sk",
+                    "s_store_sk", rid("bhm", 3))
+        pre = P.Projection(child=join, exprs=(
+            E.col("i_category"), E.col("s_state"),
+            E.Cast(child=E.col("ss_quantity"), dtype=f64)),
+            names=("i_category", "s_state", "qty"))
+        cat, state, qty = E.col("i_category"), E.col("s_state"), E.col("qty")
+        expand = P.Expand(
+            child=pre, projections=(
+                (cat, state, qty, lit(0, i64)),
+                (cat, lit(None, st), qty, lit(1, i64)),
+                (lit(None, st), lit(None, st), qty, lit(3, i64))),
+            names=("i_category", "s_state", "qty", "spark_grouping_id"),
+            types=(st, st, f64, i64))
+        keys = ("i_category", "s_state", "spark_grouping_id")
+        return {rid("broadcast", 0): scan(ITEM_CATEGORY, "item"),
+                rid("broadcast", 2): scan(STORE, "store"),
+                **_two_phase(name, expand, keys, (
+                    ("i_category", "str"), ("s_state", "str"),
+                    ("spark_grouping_id", "i64")),
+                    (fn("avg", qty, f64), fn("count", qty, i64)),
+                    ("avg_qty", "n"), (asc("spark_grouping_id"),
+                                       asc("i_category"), asc("s_state")),
+                    200, 4)}
+    if name != "q33b":
+        raise ValueError(f"no query {name!r}")
+    parts = parts or {"store_sales": N_MAPS, "catalog_sales": N_CATALOG_MAPS,
+                      "web_sales": N_WEB_MAPS}
+    out, inputs = {}, []
+    for j, (table, x) in enumerate(CHANNELS):
+        out[rid("broadcast", 4 * j)] = P.Filter(
+            child=scan(DATE_YEAR_MOY, "date_dim"),
+            predicates=(eq("d_year", Q33B_YEAR_MOY[0]),
+                        eq("d_moy", Q33B_YEAR_MOY[1])))
+        out[rid("broadcast", 4 * j + 2)] = scan(ITEM_MANUFACT, "item")
+        join = _bhj(_bhj(P.FFIReader(schema=channel_schema(x),
+                                     resource_id=table),
+                         rid("broadcast", 4 * j), _schema(*DATE_YEAR_MOY),
+                         f"{x}_sold_date_sk", "d_date_sk",
+                         rid("bhm", 4 * j + 1)),
+                    rid("broadcast", 4 * j + 2), _schema(*ITEM_MANUFACT),
+                    f"{x}_item_sk", "i_item_sk", rid("bhm", 4 * j + 3))
+        proj = P.Projection(child=join, exprs=(
+            E.col("i_manufact_id"), E.col(f"{x}_ext_sales_price")),
+            names=("i_manufact_id", "ext_price"))
+        inputs += [P.UnionInput(child=proj, partition=q,
+                                out_partition=len(inputs) + q)
+                   for q in range(parts[table])]
+    union = P.Union(inputs=tuple(inputs), schema=_schema(
+        ("i_manufact_id", "i32"), ("ext_price", "f64")),
+        num_partitions=len(inputs))
+    out.update(_two_phase(
+        name, union, ("i_manufact_id",), (("i_manufact_id", "i32"),),
+        (fn("sum", E.col("ext_price"), f64),), ("total",),
+        (E.SortExpr(child=E.col("total"), asc=False, nulls_first=False),
+         asc("i_manufact_id")), 100, 12))
+    return out
+
+
+def make_store(rows: int = SF10_STORES):
+    """SF-10 store's s_store_sk 1..rows and s_state = STATES[sk % 10], as
+    `it/datagen.py` sets it; neither null."""
+    sk = np.arange(1, rows + 1, dtype=np.int64)
+    ones = np.ones(rows, bool)
+    return [sk, _objects([STATES[k % len(STATES)] for k in sk.tolist()])], \
+        [ones, ones]
+
+
+def make_item_dims(seed: int, rows: int = SF10_ITEMS):
+    """SF-10 item's i_item_sk 1..rows with i_category =
+    CATEGORIES[sk % 10] (`it/datagen.py`'s) and i_manufact_id uniform
+    over 1..1000; none null.  Returns ((sk, category), (sk, manufact))
+    tables."""
+    rng = np.random.default_rng([seed, 33])
+    sk = np.arange(1, rows + 1, dtype=np.int64)
+    ones = np.ones(rows, bool)
+    cat = _objects([CATEGORIES[k % len(CATEGORIES)] for k in sk.tolist()])
+    manu = rng.integers(1, 1001, rows).astype(np.int32)
+    return ([sk, cat], [ones, ones]), ([sk, manu], [ones, ones])
+
+
+def make_ss_keys(rows: int, seed: int):
+    """store_sales' ss_item_sk (uniform over the SF-10 items, never null)
+    and ss_store_sk (uniform over the stores, NULL_FRACTION nulls), and
+    ss_net_profit round(N(10, 40), 2) as `it/datagen.py` draws it, with
+    NULL_FRACTION nulls: (item, store, store valid, profit, profit
+    valid)."""
+    rng = np.random.default_rng([seed, 65])
+    return (rng.integers(1, SF10_ITEMS + 1, rows, dtype=np.int64),
+            rng.integers(1, SF10_STORES + 1, rows, dtype=np.int64),
+            rng.random(rows) >= NULL_FRACTION,
+            np.round(rng.normal(10, 40, rows), 2),
+            rng.random(rows) >= NULL_FRACTION)
+
+
+def make_channel(rows: int, seed: int, tag: int):
+    """A sales channel's sold date (uniform over the sold-date keys),
+    item (uniform over the items) and ext_sales_price round(price x
+    quantity, 2) (price 1..200, quantity 1..99, as `it/datagen.py`), each
+    with NULL_FRACTION nulls."""
+    rng = np.random.default_rng([seed, tag])
+    lo, hi = SOLD_DATE_SK
+    ext = np.round(np.round(rng.uniform(1.0, 200.0, rows), 2) *
+                   rng.integers(1, 100, rows), 2)
+    return ([rng.integers(lo, hi + 1, rows, dtype=np.int64),
+             rng.integers(1, SF10_ITEMS + 1, rows, dtype=np.int64), ext],
+            [rng.random(rows) >= NULL_FRACTION for _ in range(3)])
+
+
+def _calendar(sk):
+    """(year, month) of date keys on `make_date_dim`'s calendar."""
+    day = sk - GRID_FIRST_SK
+    return 1998 + day // 365, np.minimum(day % 365 // 30 + 1, 12)
+
+
+def check_q13a(out, ss, ssv) -> int:
+    """q13a in numpy: store_sales rows of 2001 in a store of TN, CA, TX
+    or OH (a null date or store joins nothing), Average of quantity and
+    sales price and Sum of net profit by s_state, in state order: keys
+    exact, the rest to relative 1e-9.  Returns the groups."""
+    date, store, qty, price, profit = ss
+    dv, sv, qv, pv, fv = ssv
+    year, _ = _calendar(date)
+    state = store % len(STATES)
+    keep = dv & sv & (year == Q13A_YEAR) & (state < len(Q13A_STATES))
+    names = sorted(Q13A_STATES)
+    exp = []
+    for name in names:
+        rows = keep & (state == STATES.index(name))
+        exp.append((name, qty[rows & qv].mean(), price[rows & pv].mean(),
+                    profit[rows & fv].sum()))
+    got = list(zip(*(out[c][0].tolist() for c in ("s_state", "avg_q",
+                                                    "avg_p", "profit"))))
+    if [g[0] for g in got] != names or not all(
+            abs(g - e) <= 1e-9 * abs(e) for gr, er in zip(got, exp)
+            for g, e in zip(gr[1:], er[1:])):
+        raise AssertionError(f"q13a: {got} != numpy's {exp}")
+    return len(got)
+
+
+def _top_rows_match(what, got_vals, exp, kth: float,
+                    rel: float = 1e-9) -> None:
+    """A top-k by a float sum computed in another order: each row's value
+    is numpy's for its key, `exp` (relative `rel`), the values do not
+    rise, and the last is no lower than numpy's k-th, so no row numpy
+    ranks above it is missing (only a tie within `rel` may take another
+    key)."""
+    got = np.asarray(got_vals)
+    if np.any(np.abs(got - exp) > rel * np.abs(exp)) or \
+            np.any(np.diff(got) > rel * np.abs(got[1:])) or \
+            got[-1] < kth * (1 - rel * np.sign(kth)):
+        raise AssertionError(f"{what}: the top rows differ from numpy's")
+
+
+def check_q65w(out, ss, ssv) -> int:
+    """q65w in numpy: revenue = Sum of ss_sales_price by (store, item)
+    (the null store a partition of its own, ordered first), per store the
+    5 items of the highest revenue ranked 1..5 (ties by item), the first
+    200 rows by (store, rank, item); revenues to relative 1e-9 and the
+    ranked items numpy's up to a tie within it.  Returns the groups."""
+    item, store, price = ss
+    _, sv, pv = ssv
+    s = np.where(sv, store, 0)
+    pair, inv = np.unique(s * (SF10_ITEMS + 1) + item, return_inverse=True)
+    rev = np.bincount(inv, weights=np.where(pv, price, 0.0))
+    has = np.bincount(inv, weights=pv) > 0
+    p_store = pair // (SF10_ITEMS + 1)
+    (k, kv), (it, _), (r, rv), (rk, _) = (out[c] for c in (
+        "ss_store_sk", "ss_item_sk", "revenue", "rk"))
+    ks = np.where(kv, k, 0)
+    stores = np.unique(p_store)[:200 // Q65W_TOP]
+    if len(k) != 200 or not rv.all() or \
+            not np.array_equal(ks, np.repeat(stores, Q65W_TOP)) or \
+            not np.array_equal(rk, np.tile(np.arange(1, Q65W_TOP + 1),
+                                           len(stores))):
+        raise AssertionError("q65w: the rows are not 5 ranked items of "
+                             "each of the first 40 stores")
+    for j, st in enumerate(stores.tolist()):
+        mine = (p_store == st) & has
+        kth = np.sort(rev[mine])[-Q65W_TOP]
+        sl = slice(j * Q65W_TOP, (j + 1) * Q65W_TOP)
+        keys = st * (SF10_ITEMS + 1) + it[sl]
+        at = np.minimum(np.searchsorted(pair, keys), len(pair) - 1)
+        if not np.array_equal(pair[at], keys):
+            raise AssertionError(f"q65w: store {st} has an item numpy "
+                                 f"has no sale of")
+        _top_rows_match(f"q65w store {st}", r[sl], rev[at], kth)
+    return len(pair)
+
+
+def check_q27r(out, ss, ssv) -> int:
+    """q27r in numpy: Average and Count of quantity by (category, state),
+    by category and overall (a null store joins nothing), ordered by
+    grouping id, category and state: keys and counts exact, averages to
+    relative 1e-9.  Returns the groups."""
+    item, store, qty = ss
+    _, sv, qv = ssv
+    cat, state = item % len(CATEGORIES), store % len(STATES)
+    exp = {}
+    for gid, key in ((0, cat * 16 + state), (1, cat * 16 + 15),
+                     (3, np.full(len(item), 255))):
+        keys = np.where(sv, key, -1)
+        n = np.bincount(keys[sv], weights=qv[sv], minlength=256)
+        tot = np.bincount(keys[sv], weights=np.where(qv, qty, 0)[sv],
+                          minlength=256)
+        for g in np.flatnonzero(np.bincount(keys[sv], minlength=256)):
+            c = None if g == 255 else CATEGORIES[g // 16]
+            st = None if g % 16 == 15 else STATES[g % 16]
+            exp[(gid, c, st)] = (int(n[g]), tot[g] / n[g])
+    got = list(zip(*(out[c][0].tolist() for c in (
+        "spark_grouping_id", "i_category", "s_state", "n", "avg_qty"))))
+    valid = [out[c][1].tolist() for c in ("i_category", "s_state")]
+    got = [(g, c if cv else None, s if stv else None, n, a)
+           for (g, c, s, n, a), cv, stv in zip(got, *valid)]
+    order = sorted(exp, key=lambda t: (t[0], t[1] is not None, t[1] or "",
+                                       t[2] is not None, t[2] or ""))
+    if [g[:3] for g in got] != order or not all(
+            g[3] == exp[g[:3]][0] and
+            abs(g[4] - exp[g[:3]][1]) <= 1e-9 * exp[g[:3]][1] for g in got):
+        raise AssertionError(f"q27r: {len(got)} groups differ from numpy's "
+                             f"{len(exp)}")
+    return len(got)
+
+
+def check_q33b(out, channels, manufact) -> int:
+    """q33b in numpy: each channel's rows of March 1999 joined to item's
+    i_manufact_id, the three channels' Sum of ext_sales_price by
+    manufacturer, the top 100 by (total desc, manufacturer); totals to
+    relative 1e-9, the manufacturers numpy's up to a tie within it.
+    Returns the groups."""
+    total = np.zeros(1001)
+    seen = np.zeros(1001, bool)
+    has = np.zeros(1001, bool)
+    for (date, item, ext), (dv, iv, ev) in channels:
+        year, moy = _calendar(date)
+        keep = dv & iv & (year == Q33B_YEAR_MOY[0]) & \
+            (moy == Q33B_YEAR_MOY[1])
+        m = manufact[item[keep] - 1]
+        total += np.bincount(m, weights=np.where(ev[keep], ext[keep], 0.0),
+                             minlength=1001)
+        seen |= np.bincount(m, minlength=1001) > 0
+        has |= np.bincount(m, weights=ev[keep], minlength=1001) > 0
+    (m, _), (t, tv) = out["i_manufact_id"], out["total"]
+    groups = int(seen.sum())
+    kth = np.sort(total[has])[-100]
+    if len(m) != min(100, groups) or not tv.all():
+        raise AssertionError(f"q33b: {len(m)} rows of {groups} groups")
+    _top_rows_match("q33b", t, total[m], kth)
+    return groups
+
+
+def run_slice9_query(name, tables, n_maps, dev, K, card: str):
+    """One of q13a, q65w, q27r and q33b whole on the card (`JoinQuery`):
+    its stage report, and the query run."""
+    torch.cuda.reset_peak_memory_stats()
+    q = JoinQuery(name, tables, n_maps, dev, K).run()
+    q.report(SLICE9_PHASES[name], card)
+    return q
+
+
+SLICE9_PHASES = {"q13a": 21, "q65w": 22, "q27r": 23, "q33b": 24}
 
 
 @contextlib.contextmanager
@@ -2401,19 +2879,19 @@ def _scan_batches(cols, valid, lo: int, hi: int):
 
 
 def join_stage_task(plan, m: int, n: int, res, stage: int, dev,
-                    scan=None, writer=None):
+                    scans=(), writer=None):
     """Task m of n of a stage through execute_task_bytes, `res` the
     stage's registry (its tasks share it: a broadcast's build table is
-    cached there); `scan` = (table, cols, valid) splits the table's rows
-    n ways, `writer` the stage's shuffle service and id."""
+    cached there); each of `scans`, (table, cols, valid, k, parts), puts
+    split k of the table's rows cut `parts` ways; `writer` is the
+    stage's shuffle service and id."""
     from auron_tpu_torch.ir import plan as P
     from auron_tpu_torch.ir import serde
     from auron_tpu_torch.runtime.executor import execute_task_bytes
-    if scan is not None:
-        table, cols, valid = scan
+    for table, cols, valid, k, parts in scans:
         rows = len(cols[0])
-        res.put(table, _scan_batches(cols, valid, m * rows // n,
-                                     (m + 1) * rows // n))
+        res.put(table, _scan_batches(cols, valid, k * rows // parts,
+                                     (k + 1) * rows // parts))
     if writer is not None:
         svc, sid = writer
         res.put("shuffle_writer", svc.rss_writer(sid, m))
@@ -2433,7 +2911,7 @@ class JoinQuery:
     def __init__(self, name, tables, n_maps, dev, K):
         self.name, self.tables, self.n_maps = name, tables, n_maps
         self.dev, self.K = dev, K
-        self.plans = join_query_plans(name)
+        self.plans = join_query_plans(name, n_maps)
         self.secs, self.results, self.launches = {}, {}, {}
         self.blocks, self.shapes = {}, []
 
@@ -2451,23 +2929,44 @@ class JoinQuery:
         return res
 
     def tasks(self, plan):
-        """(task count, scan of the stage or None)."""
-        scans = _reader_ids(plan, "ffi_reader")
+        """(task count, task -> the scan splits it reads, as
+        `join_stage_task` takes them).  A stage over a union of scans
+        runs a task per union partition, which reads split `partition`
+        of its input's table (cut `n_maps[table]` ways); a stage over one
+        scan a task per split; any other a task per partition of the
+        exchange it reads."""
+        scans = list(dict.fromkeys(_reader_ids(plan, "ffi_reader")))
+        unions = []
+        _replaced(plan, lambda n: unions.append(n) if n.kind == "union"
+                  else None)
+        if unions and scans:
+            [union] = unions
+            assign = {}
+            for inp in union.inputs:
+                [table] = set(_reader_ids(inp.child, "ffi_reader"))
+                assign[inp.out_partition] = (table, inp.partition)
+
+            def split(m):
+                table, k = assign[m]
+                return [(table,) + self.tables[table] +
+                        (k, self.n_maps[table])]
+            return union.num_partitions, split
         if scans:
             [table] = scans
-            return self.n_maps[table], (table,) + self.tables[table]
+            n = self.n_maps[table]
+            return n, lambda m: [(table,) + self.tables[table] + (m, n)]
         first = next(r for r in _reader_ids(plan, "ipc_reader")
                      if r.startswith("shuffle"))
-        return len(self.blocks[first]), None
+        return len(self.blocks[first]), lambda m: []
 
     def run_task(self, rid, m: int, svc=None, res=None):
         """Task m of stage `rid` (into `svc` when it writes), reading
         `res` or all its inputs."""
         plan = self.plans[rid]
-        n, scan = self.tasks(plan)
+        n, scans = self.tasks(plan)
         return join_stage_task(plan, m, n, res or self.registry(plan),
                                list(self.plans).index(rid) + 1, self.dev,
-                               scan, None if svc is None else (svc, rid))
+                               scans(m), None if svc is None else (svc, rid))
 
     def run(self):
         from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
@@ -2504,13 +3003,17 @@ class JoinQuery:
     @staticmethod
     def _check_writers(rid, plan, results, launches):
         """The histogram on every writer batch, hash-pid on each too when
-        the exchange hashes one key (each such key here is int64)."""
+        the exchange hashes one int64 key."""
+        from auron_tpu_torch.exprs.typing import infer_type
+        from auron_tpu_torch.runtime.planner import PhysicalPlanner
         p = plan.partitioning
         pushed = sum(r.metrics.get("shuffle_write_batches", 0)
                      for r in results)
         by_hist = sum(r.metrics.get("sizes_by_hist", 0) for r in results)
-        want_pid = pushed if p.mode == "hash" and \
-            len(p.expressions) == 1 else 0
+        one_i64 = p.mode == "hash" and len(p.expressions) == 1 and \
+            infer_type(p.expressions[0], PhysicalPlanner().create_plan(
+                plan.child).schema).id.name == "INT64"
+        want_pid = pushed if one_i64 else 0
         if not pushed or launches["radix_bucket_hist"] != pushed or \
                 by_hist != pushed or \
                 launches["hash_partition_ids_i64"] != want_pid:
@@ -2667,6 +3170,12 @@ JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
 BROADCAST_LEFT = ("right", "right_semi", "right_anti")
 JOIN_LEFT = (("lk", "i64"), ("lv", "i64"))
 JOIN_RIGHT = (("rk", "i64"), ("rv", "f64"), ("rs", "str"))
+# string keys (phase 19): 0-40 bytes, the left side's at most 8
+STRING_JOIN_ROWS = 1 << 15
+STRING_JOIN_KEYS = 1 << 12
+SIDES = {"int64": (JOIN_LEFT, JOIN_RIGHT),
+         "string": ((("lk", "str"),) + JOIN_LEFT[1:],
+                    (("rk", "str"),) + JOIN_RIGHT[1:])}
 
 
 def join_type_cases():
@@ -2686,12 +3195,14 @@ def join_type_cases():
     return out
 
 
-def join_type_plan(op: str, jt: str, build: str):
-    """A join of FFIReaders "left" and "right" on lk = rk."""
+def join_type_plan(op: str, jt: str, build: str, keys: str = "int64"):
+    """A join of FFIReaders "left" and "right" on lk = rk, keys of type
+    `keys` (`SIDES`)."""
     from auron_tpu_torch.ir import expr as E
     from auron_tpu_torch.ir import plan as P
-    left = P.FFIReader(schema=_schema(*JOIN_LEFT), resource_id="left")
-    right = P.FFIReader(schema=_schema(*JOIN_RIGHT), resource_id="right")
+    ls, rs = SIDES[keys]
+    left = P.FFIReader(schema=_schema(*ls), resource_id="left")
+    right = P.FFIReader(schema=_schema(*rs), resource_id="right")
     on = P.JoinOn(left_keys=(E.col("lk"),), right_keys=(E.col("rk"),))
     if op == "broadcast":
         cache = "bhm:phase19:1"
@@ -2721,6 +3232,32 @@ def make_join_sides(seed: int, n: int = JOIN_SIDE_ROWS):
     rng = np.random.default_rng([seed, 19])
     lk = rng.integers(0, JOIN_KEYS + JOIN_KEYS // 8, n, dtype=np.int64)
     rk = rng.integers(-(JOIN_KEYS // 8), JOIN_KEYS, n, dtype=np.int64)
+    lv = rng.integers(-10**9, 10**9, n, dtype=np.int64)
+    rv = np.round(rng.random(n) * 1000.0, 2)
+    rs = customer_ids(rng.integers(1, SF10_CUSTOMERS + 1, n))
+    valid = [rng.random(n) >= NULL_FRACTION for _ in range(5)]
+    return ([lk, lv], valid[:2]), ([rk, rv, rs], valid[2:])
+
+
+def make_string_join_sides(seed: int, n: int = STRING_JOIN_ROWS):
+    """Two sides of n rows on string keys of 0-40 UTF-8 bytes (the edge
+    cases of `_string_key_pool` among them): the left side's keys at
+    most 8 bytes (width 8), an eighth of them on the left only; the
+    right side's from every key, half of them 9-40 bytes (width 64), so
+    the build and the probe side lie in different width buckets;
+    NULL_FRACTION nulls in every column."""
+    rng = np.random.default_rng([seed, 191])
+    keys, short = _string_key_pool(rng)
+    extra = STRING_JOIN_KEYS - len(keys)
+    pool = list(keys) + [f"k{i}" + ("-" * (i % 2) * 30) for i in
+                         range(extra)]
+    pool = _objects(pool)
+    is_short = np.array([len(x.encode()) <= 8 for x in pool])
+    short_ids = np.flatnonzero(is_short)
+    left_only = short_ids[:len(short_ids) // 8]
+    both = np.setdiff1d(np.arange(len(pool)), left_only)
+    lk = pool[short_ids[rng.integers(0, len(short_ids), n)]]
+    rk = pool[both[rng.integers(0, len(both), n)]]
     lv = rng.integers(-10**9, 10**9, n, dtype=np.int64)
     rv = np.round(rng.random(n) * 1000.0, 2)
     rs = customer_ids(rng.integers(1, SF10_CUSTOMERS + 1, n))
@@ -2770,17 +3307,20 @@ def _same_rows(a: dict, b: dict) -> bool:
         list(a[k][0][a[k][1]]) == list(b[k][0][b[k][1]]) for k in a)
 
 
-def check_join_types(dev, seed: int, card: str) -> int:
+def check_join_types(dev, seed: int, card: str, keys: str = "int64"
+                     ) -> int:
     """Phase 19: every join type through each operator on the card,
     equal row for row to the port's own run on the CPU and in count to
     numpy; the probe batches span several pair chunks; and with an empty
-    build side.  Returns the cases run."""
-    left, right = make_join_sides(seed)
+    build side; on int64 keys, or on string keys whose two sides lie in
+    different width buckets.  Returns the cases run."""
+    left, right = make_join_sides(seed) if keys == "int64" else \
+        make_string_join_sides(seed)
     empty = ([c[:0] for c in right[0]], [v[:0] for v in right[1]])
     t0 = time.perf_counter()
     cases = 0
     for op, jt, build in join_type_cases():
-        plan = join_type_plan(op, jt, build)
+        plan = join_type_plan(op, jt, build, keys)
         streaming = op != "smj_whole"
         runs = [(left, right)]
         if build != "left" and jt in ("inner", "left", "left_anti",
@@ -2806,17 +3346,276 @@ def check_join_types(dev, seed: int, card: str) -> int:
                 raise AssertionError("phase 19: the probe batches did not "
                                      "span several pair chunks")
             cases += 1
-    print(f"phase 19: {cases} joins (every join type x broadcast, hash "
-          f"built left and right, sort-merge streaming and whole-side; "
-          f"{JOIN_SIDE_ROWS} rows a side, empty build sides) equal to the "
-          f"CPU's rows and numpy's counts in "
+    print(f"phase 19: {cases} joins on {keys} keys (every join type x "
+          f"broadcast, hash built left and right, sort-merge streaming and "
+          f"whole-side; {len(left[0][0])} rows a side, empty build sides) "
+          f"equal to the CPU's rows and numpy's counts in "
           f"{time.perf_counter() - t0:.1f} s | {card}")
     return cases
 
 
+# string comparisons and the two scalar functions (phase 20)
+COMPARE_COLS = (("k", "str"), ("t", "str"), ("v", "i64"), ("x", "f64"),
+                ("q", "i32"))
+COMPARE_OPS = ("==", "!=", "<=>", "<", "<=", ">", ">=")
+
+
+def compare_plans():
+    """(projection, filter) plans over the "strings" FFIReader: every
+    comparison of k with t and with a literal, IN over strings with and
+    without a null, NOT IN, round at scales -2, 0, 2 and 6 (q74y's
+    round(x / y, 6)) over float64, int32 and int64, coalesce over a
+    float (q40c's coalesce(x, 0.0)), an int and strings, nvl; and a
+    FilterExec by a string order and an IN, with its projection."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    st, i32, i64, f64 = DataType.string(), DataType.int32(), \
+        DataType.int64(), DataType.float64()
+    k, t, v, x, q = (E.col(c) for c, _ in COMPARE_COLS)
+
+    def lit(val, dt):
+        return E.Literal(value=val, dtype=dt)
+
+    def fn(name, *args, rt):
+        return E.ScalarFunctionCall(name=name, args=args, return_type=rt)
+    exprs, names = [], []
+    for i, op in enumerate(COMPARE_OPS):
+        for rhs, tag in ((t, "t"), (lit("ab", st), "ab"),
+                         (lit("a literal wider than 8 bytes", st), "wide")):
+            exprs.append(E.BinaryExpr(left=k, op=op, right=rhs))
+            names.append(f"cmp{i}_{tag}")
+    in_list = tuple(lit(w, st) for w in ("ab", "", "é", "ab\x00"))
+    exprs += [E.InList(child=k, values=in_list),
+              E.InList(child=k, values=in_list + (lit(None, st),)),
+              E.InList(child=t, values=in_list, negated=True)]
+    names += ["in", "in_null", "not_in"]
+    for scale in (-2, 0, 2):
+        for c, dt, tag in ((x, f64, "x"), (q, i32, "q"), (v, i64, "v")):
+            exprs.append(fn("round", c, lit(scale, i32), rt=dt))
+            names.append(f"round_{tag}{scale}")
+    exprs += [fn("round", E.BinaryExpr(left=x, op="/", right=E.Cast(
+                  child=q, dtype=f64)), lit(6, i32), rt=f64),
+              fn("coalesce", x, lit(0.0, f64), rt=f64),
+              fn("nvl", v, lit(0, i64), rt=i64),
+              fn("coalesce", k, t, lit("none", st), rt=st)]
+    names += ["round_ratio6", "coalesce_x", "nvl_v", "coalesce_kt"]
+    scan = P.FFIReader(schema=_schema(*COMPARE_COLS), resource_id="strings")
+    proj = P.Projection(child=scan, exprs=tuple(exprs), names=tuple(names))
+    filt = P.Projection(
+        child=P.Filter(child=scan, predicates=(
+            E.BinaryExpr(left=k, op=">=", right=lit("b", st)),
+            E.InList(child=t, values=in_list + (k,), negated=True))),
+        exprs=(k, t, E.BinaryExpr(left=k, op="<", right=t)),
+        names=("k", "t", "k_lt_t"))
+    return proj, filt
+
+
+def _float_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance in units of the last place of two float64
+    arrays."""
+    ia, ib = a.view(np.int64), b.view(np.int64)
+    ia = np.where(ia < 0, np.int64(-2**63) - ia, ia)
+    ib = np.where(ib < 0, np.int64(-2**63) - ib, ib)
+    return int(np.abs(ia - ib).max()) if len(a) else 0
+
+
+def check_string_compare(scols, svalid, cols, valid, dev, card: str):
+    """Phase 20: the comparisons, IN, round and coalesce of
+    `compare_plans` over phase 18's string keys (k, and t the keys
+    shifted by a row) with phase 3's price and quantity, on the card and
+    on the CPU: bools, ints and strings exact, round's float64 bits
+    exact or within the one ulp it prints."""
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    n = len(scols[0])
+    k, v = scols
+    data = [k, np.roll(k, 1), v, cols[2][:n], cols[1][:n]]
+    dvalid = [svalid[0], np.roll(svalid[0], 1), svalid[1], valid[2][:n],
+              valid[1][:n]]
+    for plan in compare_plans():
+        outs, secs = [], []
+        for d in (dev, "cpu"):
+            res = ResourceRegistry()
+            res.put("strings", _scan_batches(data, dvalid, 0, n))
+            t0 = time.perf_counter()
+            out = execute_task_bytes(serde.serialize(P.TaskDefinition(
+                plan=plan)), res, device=d)
+            outs.append(out.to_numpy())
+            secs.append(time.perf_counter() - t0)
+        got, exp = outs
+        floats = [c for c in got if got[c][0].dtype == np.float64]
+        ulps = {c: _float_ulps(got[c][0][got[c][1]], exp[c][0][exp[c][1]])
+                for c in floats
+                if np.array_equal(got[c][1], exp[c][1])}
+        flat = {c: got[c] for c in got if c not in floats}
+        if not _same_rows(flat, {c: exp[c] for c in flat}) or \
+                len(ulps) != len(floats) or any(u > 1 for u in ulps.values()):
+            raise AssertionError(f"phase 20: the card's columns differ from "
+                                 f"the CPU's (float ulps {ulps})")
+        rows = len(next(iter(got.values()))[0])
+        off = {c: u for c, u in ulps.items() if u}
+        print(f"phase 20: {len(got)} columns over {n} rows ({rows} out) on "
+              f"the card in {secs[0]:.3f} s equal to the CPU's ({secs[1]:.3f}"
+              f" s); float64 columns off by an ulp: {off or 'none'} | "
+              f"{card}")
+
+
+# the window functions on the card (phase 20)
+WINDOW_COLS = (("k1", "i32"), ("k2", "str"), ("o", "f64"), ("x", "f64"),
+               ("i", "i64"), ("s", "str"))
+WINDOW_KEYS = {"no key": (), "one key": ("k1",), "two keys": ("k1", "k2")}
+WINDOW_ORDER = (("o", True, True), ("i", False, False))
+# float columns summed by `index_add_`, whose order the card does not fix
+WINDOW_SUMMED = ("sum_x", "avg_x")
+
+
+def window_plans():
+    """(what, plan) of a Window over the "window" blocks: every window
+    function the port has (the ranks, percent_rank, cume_dist, lead/lag
+    with and without a default, a string default among them,
+    first_value, nth_value, nth_value_ignore_nulls, last_value; count,
+    sum, avg, min and max over the window) with no partition key, one
+    int key and two keys (int and string), each with an order (a RANGE
+    frame) and without (OVER (PARTITION BY ...), OVER () with no key);
+    then the group limit under each rank function."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    st, i32, i64, f64 = DataType.string(), DataType.int32(), \
+        DataType.int64(), DataType.float64()
+    x, i, s = E.col("x"), E.col("i"), E.col("s")
+
+    def lit(val, dt):
+        return E.Literal(value=val, dtype=dt)
+
+    def call(fn, name, rt, *args, agg=None):
+        return P.WindowFuncCall(fn=fn, args=args, agg=agg, return_type=rt,
+                                name=name)
+
+    def agg(fn, name, rt, c=None):
+        return call("agg", name, rt, agg=E.AggExpr(
+            fn=fn, children=(E.col(c),) if c else (), return_type=rt))
+    calls = (call("row_number", "rn", i32), call("rank", "rk", i32),
+             call("dense_rank", "drk", i64),
+             call("percent_rank", "prk", f64), call("cume_dist", "cd", f64),
+             call("lead", "lead_x", f64, x, lit(1, i32)),
+             call("lead", "lead_s", st, s, lit(2, i32), lit("none", st)),
+             call("lag", "lag_i", i64, i, lit(3, i32), lit(-7, i64)),
+             call("lag", "lag_s", st, s, lit(1, i32)),
+             call("first_value", "fv", f64, x),
+             call("nth_value", "nth_i", i64, i, lit(3, i32)),
+             call("nth_value_ignore_nulls", "nth_s", st, s, lit(2, i32)),
+             call("last_value", "lv", st, s),
+             agg("count", "cnt_x", i64, "x"), agg("count", "cnt", i64),
+             agg("sum", "sum_x", f64, "x"), agg("sum", "sum_i", i64, "i"),
+             agg("avg", "avg_x", f64, "x"), agg("min", "min_x", f64, "x"),
+             agg("max", "max_x", f64, "x"), agg("min", "min_i", i64, "i"),
+             agg("max", "max_i", i64, "i"))
+    scan = P.IpcReader(schema=_schema(*WINDOW_COLS), resource_id="window")
+    order = tuple(E.SortExpr(child=E.col(c), asc=a, nulls_first=nf)
+                  for c, a, nf in WINDOW_ORDER)
+
+    def window(keys, order, funcs=calls, limit=None, output=True):
+        return P.Window(child=scan, window_funcs=funcs,
+                        partition_by=tuple(E.col(k) for k in keys),
+                        order_by=order, group_limit=limit,
+                        output_window_cols=output)
+    plans = [(f"{what}, {'ordered' if o else 'no order'}", window(keys, o))
+             for what, keys in WINDOW_KEYS.items() for o in (order, ())]
+    two = WINDOW_KEYS["two keys"]
+    for fn, k, funcs in (("row_number", 3, ()), ("rank", 5, calls[1:2]),
+                         ("dense_rank", 2, calls[2:3])):
+        plans.append((f"two keys, top {k} by {fn}", window(
+            two, order, funcs or calls[:1],
+            P.WindowGroupLimit(k=k, rank_fn=fn), output=bool(funcs))))
+    return plans
+
+
+def _same_columns(got, exp, summed=()) -> bool:
+    """Two runs' batches hold the same columns: every validity, length
+    and byte under it equal, a float's bits too, but for the `summed`
+    columns' values, to relative 1e-9.  Compared as tensors: the
+    object arrays of `to_numpy` cost seconds a million strings."""
+    from auron_tpu_torch.columnar.batch import DeviceStringColumn
+    if [b.num_rows for b in got] != [b.num_rows for b in exp]:
+        return False
+    for gb, eb in zip(got, exp):
+        for f, g, e in zip(gb.schema, gb.columns, eb.columns):
+            n = gb.num_rows
+            v = e.validity[:n]
+            if not torch.equal(g.validity[:n].cpu(), v):
+                return False
+            if isinstance(e, DeviceStringColumn):
+                gd, ed = g.data[:n].cpu(), e.data[:n]
+                if gd.shape != ed.shape or not torch.equal(
+                        g.lengths[:n].cpu()[v], e.lengths[:n][v]) or \
+                        not torch.equal(gd[v], ed[v]):
+                    return False
+                continue
+            gd, ed = g.data[:n].cpu()[v], e.data[:n][v]
+            if f.name in summed:
+                if not torch.allclose(gd, ed, rtol=1e-9, atol=0.0):
+                    return False
+            elif gd.dtype == torch.float64:
+                if not torch.equal(gd.view(torch.int64),
+                                   ed.view(torch.int64)):
+                    return False
+            elif not torch.equal(gd, ed):
+                return False
+    return True
+
+
+def check_windows(scols, svalid, cols, valid, dev, card: str) -> None:
+    """Phase 20: every plan of `window_plans` on the card and on the CPU
+    over phase 18's string keys (k2, and s the keys shifted by a row),
+    phase 3's quantity (k1, 100 values) and price (o, and x the prices
+    shifted by 7 rows) and phase 18's ints (i): the same rows in the
+    same order, ints, ranks, strings and float bits exact, the float
+    sums and averages summed by `index_add_` to relative 1e-9."""
+    from auron_tpu_torch.columnar.batch import from_numpy
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    n = len(scols[0])
+    data = [cols[1][:n], scols[0], cols[2][:n], np.roll(cols[2][:n], 7),
+            scols[1], np.roll(scols[0], 1)]
+    dvalid = [valid[1][:n], svalid[0], valid[2][:n],
+              np.roll(valid[2][:n], 7), svalid[1], np.roll(svalid[0], 1)]
+    schema = _schema(*WINDOW_COLS)
+    # the window's input as shuffle blocks on each device, made once
+    blocks = [[from_numpy(schema, a, v, device=d)
+               for a, v in _scan_batches(data, dvalid, 0, n)]
+              for d in (dev, "cpu")]
+    secs = [0.0, 0.0]
+    plans = window_plans()
+    for what, plan in plans:
+        outs = []
+        for j, d in enumerate((dev, "cpu")):
+            res = ResourceRegistry()
+            res.put("window", blocks[j])
+            t0 = time.perf_counter()
+            out = execute_task_bytes(serde.serialize(P.TaskDefinition(
+                plan=plan)), res, device=d)
+            if j == 0:
+                torch.cuda.synchronize()
+            secs[j] += time.perf_counter() - t0
+            outs.append(out.batches)
+        if not _same_columns(*outs, summed=WINDOW_SUMMED):
+            raise AssertionError(f"phase 20: the window over {what}: the "
+                                 f"card's columns differ from the CPU's")
+    print(f"phase 20: {len(plans)} windows over {n} rows (no key, "
+          f"one and two keys, with and without an order, the group limits; "
+          f"22 functions) on the card in {secs[0]:.3f} s equal to the CPU's "
+          f"({secs[1]:.3f} s) | {card}")
+
+
 def check_path_shapes(K, dev, rng, shapes) -> dict:
     """Phase 15, run last: each kernel at each (kernel, rows, n_parts) a
-    path of phases 3-14 and 16-18 gave it, held bit-exact against its
+    path of phases 3-14, 16-18 and 21-24 gave it, held bit-exact against its
     plain version on fresh inputs: hash-pid on int64 keys with 10% nulls,
     the histogram at the writer's padded capacity and the writer's sizes
     against torch.bincount.  Returns the largest difference (0) of each
@@ -2851,7 +3650,8 @@ def check_path_shapes(K, dev, rng, shapes) -> dict:
         if err:
             raise AssertionError(f"phase 15: {kernel} != plain at n={n} "
                                  f"n_parts={n_parts}")
-    print(f"phase 15: every kernel shape of phases 3-14 and 16-18 bit-exact "
+    print(f"phase 15: every kernel shape of phases 3-14, 16-18 and 21-24 "
+          f"bit-exact "
           f"with its plain version, {len(done)} (kernel, rows, n_parts): "
           f"{sorted(done)}")
     return worst
@@ -3061,14 +3861,14 @@ def main() -> int:
           f"{check_q17m(out, jcols, jvalid)} stores, the null store first) "
           f"equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    # a sixteenth of the task: reading a whole task's trace (1.3 million
-    # launches) took 471 s on an H100
+    # a 64th of the task: reading a whole task's trace (1.3 million
+    # launches) took 471 s on an H100, a sixteenth's 45-50 s
     smj = q.plans["shuffle:q17m:2"]
     profile_task("phase 13: q17m sort-merge join task 0 over the first "
-                 "sixteenth of its blocks",
+                 "64th of its blocks",
                  lambda: q.run_task("shuffle:q17m:2", 0,
                                     InProcessShuffleService(),
-                                    q.registry(smj, cut=16)), card)
+                                    q.registry(smj, cut=64)), card)
     del q, sales, returns, jcols, jvalid, ridx
     fcols, fvalid = make_float_keys(args.seed,
                                     min(FLOAT_KEY_ROWS, args.rows))
@@ -3123,11 +3923,12 @@ def main() -> int:
     print(f"phase 16: q09c's three bands equal to numpy (counts "
           f"{check_q09c(out, q88_cols, q88_valid)}), peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    # a quarter of the task: reading a whole task's trace took 35-41 s
     q09c_map = q09c_plans()[0]
-    profile_task("phase 16: q09c map task 0",
+    profile_task("phase 16: q09c map task 0, its first quarter",
                  lambda: map_task(0, q88_cols, q88_valid,
                                   InProcessShuffleService(), dev, q09c_map,
-                                  "q09c"), card)
+                                  "q09c", n_maps=4 * N_MAPS), card)
     t = time.perf_counter()
     icols, ivalid = make_item(args.seed)
     print(f"phase 16: {len(icols[0])} item rows made in "
@@ -3179,9 +3980,95 @@ def main() -> int:
     print(f"phase 18: {check_string_keys(outs, scols, svalid)} string-key "
           f"groups (one null) equal to Python, each in Spark's partition of "
           f"its key | {card}")
-    del scols, svalid, outs
+    del outs
+    print(f"phases 16-18: {time.perf_counter() - new_phases:.1f} s | {card}")
     check_join_types(dev, args.seed, card)
-    print(f"phases 16-19: {time.perf_counter() - new_phases:.1f} s | {card}")
+
+    new_phases = time.perf_counter()
+    check_join_types(dev, args.seed, card, keys="string")
+    check_string_compare(scols, svalid, cols, valid, dev, card)
+    check_windows(scols, svalid, cols, valid, dev, card)
+    del scols, svalid
+    slice9_launches = {}
+    t = time.perf_counter()
+    rows = args.rows
+    ones = np.ones(rows, bool)
+    item_k, store_k, store_v, profit, profit_v = make_ss_keys(rows, args.seed)
+    date_sk, date_v = make_sold_date_sk(rows, args.seed)
+    store = make_store()
+    (dsk, dmoy, dyear), dvalid = make_date_dim()
+    item_cat, item_manu = make_item_dims(args.seed)
+    print(f"phases 21-24: store_sales' date, item, store and net profit "
+          f"({rows} rows), store, date_dim and item made in "
+          f"{time.perf_counter() - t:.2f} s")
+    ss = ([date_sk, store_k, cols[1], cols[2], profit],
+          [date_v, store_v, valid[1], valid[2], profit_v])
+    q = run_slice9_query("q13a", {
+        "store_sales": ss, "store": store,
+        "date_dim": ([dsk, dyear], dvalid[:2])},
+        {"store_sales": N_MAPS, "store": 1, "date_dim": 1}, dev, K, card)
+    shapes += q.shapes
+    slice9_launches["q13a"] = q.total_launches()
+    print(f"phase 21: q13a whole: its {check_q13a(q.out(), *ss)} state "
+          f"groups equal to numpy, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    del q, ss
+    ss = ([item_k, store_k, cols[2], cols[1]],
+          [ones, store_v, valid[2], valid[1]])
+    q = run_slice9_query("q65w", {"store_sales": ss},
+                         {"store_sales": N_MAPS}, dev, K, card)
+    shapes += q.shapes
+    slice9_launches["q65w"] = q.total_launches()
+    groups = check_q65w(q.out(), ss[0][:3], ss[1][:3])
+    window_rows = [sum(b.num_rows for b in part)
+                   for part in q.blocks["shuffle:q65w:1"]]
+    print(f"phase 22: q65w whole: {groups} (store, item) groups, window "
+          f"tasks of {window_rows} rows, the top {Q65W_TOP} of the first "
+          f"{200 // Q65W_TOP} stores and their ranks equal to numpy, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    win = q.plans["shuffle:q65w:2"]
+    res = q.registry(win)
+    profile_task("phase 22: q65w window task 0",
+                 lambda: q.run_task("shuffle:q65w:2", 0,
+                                    InProcessShuffleService(), res), card,
+                 batches=len(res.get("shuffle:q65w:1").for_partition(0)))
+    del q, ss, res
+    ss = ([item_k, store_k, cols[1]], [ones, store_v, valid[1]])
+    q = run_slice9_query("q27r", {
+        "store_sales": ss, "store": store, "item": item_cat},
+        {"store_sales": N_MAPS, "store": 1, "item": 1}, dev, K, card)
+    shapes += q.shapes
+    slice9_launches["q27r"] = q.total_launches()
+    expand_rows = q.rows_written("shuffle:q27r:4")
+    print(f"phase 23: q27r whole: {check_q27r(q.out(), *ss)} groups equal "
+          f"to numpy, {expand_rows} partial rows written, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    del q, ss
+    t = time.perf_counter()
+    channels = [([date_sk, item_k, np.round(cols[1] * cols[2], 2)],
+                 [date_v, ones, valid[1] & valid[2]]),
+                make_channel(SF10_CATALOG_SALES_ROWS * rows //
+                             SF10_STORE_SALES_ROWS, args.seed, 331),
+                make_channel(SF10_WEB_SALES_ROWS * rows //
+                             SF10_STORE_SALES_ROWS, args.seed, 332)]
+    print(f"phase 24: catalog_sales ({len(channels[1][0][0])} rows) and "
+          f"web_sales ({len(channels[2][0][0])} rows) made in "
+          f"{time.perf_counter() - t:.2f} s")
+    q = run_slice9_query("q33b", {
+        **dict(zip((table for table, _ in CHANNELS), channels)),
+        "item": item_manu, "date_dim": ([dsk, dyear, dmoy], dvalid)},
+        {"store_sales": N_MAPS, "catalog_sales": N_CATALOG_MAPS,
+         "web_sales": N_WEB_MAPS, "item": 1, "date_dim": 1}, dev, K, card)
+    shapes += q.shapes
+    slice9_launches["q33b"] = q.total_launches()
+    print(f"phase 24: q33b whole: the top 100 of "
+          f"{check_q33b(q.out(), channels, item_manu[0][1])} manufacturers "
+          f"equal to numpy, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    del q, channels, item_k, store_k, store_v, profit, profit_v, date_sk, \
+        date_v
+    print(f"phases 19 (string keys) and 20-24: "
+          f"{time.perf_counter() - new_phases:.1f} s | {card}")
 
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
@@ -3206,7 +4093,8 @@ def main() -> int:
             "q09c": q09c_launches["hash_partition_ids_i64"],
             "q41d": q41d_launches["hash_partition_ids_i64"],
             "q01": q01_whole_launches["hash_partition_ids_i64"],
-            "string_keys": string_launches["hash_partition_ids_i64"]},
+            "string_keys": string_launches["hash_partition_ids_i64"],
+            **{q: la["hash_partition_ids_i64"] for q, la in slice9_launches.items()}},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -3226,7 +4114,8 @@ def main() -> int:
             "q09c": q09c_launches["radix_bucket_hist"],
             "q41d": q41d_launches["radix_bucket_hist"],
             "q01": q01_whole_launches["radix_bucket_hist"],
-            "string_keys": string_launches["radix_bucket_hist"]},
+            "string_keys": string_launches["radix_bucket_hist"],
+            **{q: la["radix_bucket_hist"] for q, la in slice9_launches.items()}},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ type of auron_tpu_torch, against auron_tpu on the same seeded inputs.
   variance to relative 1e-9.  Float keys with -0.0 and NaNs are held to
   Spark's grouping (one group for +-0.0, one for every NaN, Queue 3
   item 12), which neither the JAX package nor pyarrow gives.
+- Min and Max over a bool column by a key: pyarrow's (and Spark's)
+  answer; the reference raises (Queue 3 item 16).
 """
 
 import jax.numpy as jnp
@@ -30,17 +32,22 @@ from auron_tpu.columnar.batch import DeviceColumn as JCol
 from auron_tpu.exprs import hashing as JH
 from auron_tpu.ir import expr as JE
 from auron_tpu.ir import plan as JP
+from auron_tpu.ir import serde as jserde
 from auron_tpu.ir.schema import DataType as JDT
+from auron_tpu.ir.schema import to_arrow_type
 from auron_tpu.ops import segments as jseg
 from auron_tpu.ops import sort_keys as JSK
 from auron_tpu.ops.agg import functions as jfn
 from auron_tpu_torch.columnar.batch import DeviceColumn
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs import hashing as H
+from auron_tpu_torch.ir import serde as pserde
 from auron_tpu_torch.ir.schema import DataType, TypeId
 from auron_tpu_torch.ops import segments as seg
 from auron_tpu_torch.ops import sort_keys as SK
 from auron_tpu_torch.ops.agg import functions as fn
+from auron_tpu_torch.runtime.executor import execute_task
+from auron_tpu_torch.runtime.resources import ResourceRegistry
 
 import torch_parity as TP
 
@@ -621,3 +628,35 @@ def test_global_min_max_first_stddev_over_no_rows(mode):
     TP.assert_same_rows(got, TP.jax_columns(jax.batches, NAMES), NAMES)
     assert got["n"][0].tolist() == [0]
     assert not any(got[x][1][0] for x in NAMES if x != "n")
+
+
+def test_bool_min_max_by_key_is_pyarrows():
+    """Min and Max of a bool column by an int64 key (ROADMAP Queue 3 item
+    16): the port gives pyarrow's (and Spark's) min [false, true, NULL]
+    and max [true, true, NULL] for keys 1, 2, 3; the reference raises
+    `ValueError` (np.iinfo of bool), pinned here."""
+    k = np.array([1, 1, 2, 2, 3], np.int64)
+    b = np.array([True, False, True, False, False])
+    bv = np.array([True, True, True, False, False])
+    schema = TP.JS.of(TP.JF("k", I64), TP.JF("b", JDT.bool_()))
+    aggs = tuple(JE.AggExpr(fn=f, children=(JE.col("b"),),
+                            return_type=JDT.bool_()) for f in ("min", "max"))
+    plan = JP.Agg(child=JP.FFIReader(schema=schema, resource_id="src"),
+                  exec_mode="single", grouping=(JE.col("k"),),
+                  grouping_names=("k",), aggs=aggs, agg_names=("mn", "mx"))
+    rb = pa.RecordBatch.from_arrays(
+        [pa.array(k, type=to_arrow_type(I64)),
+         pa.array(b, type=pa.bool_(), mask=~bv)], names=["k", "b"])
+    with pytest.raises(ValueError, match="Invalid integer data type"):
+        TP.run_both(plan, [rb], [rb])
+    res = ResourceRegistry()
+    res.put("src", [rb])
+    out = execute_task(pserde.from_json(jserde.to_json(
+        JP.TaskDefinition(plan=plan))), res, device="cpu").to_numpy()
+    got = {int(kk): tuple(bool(out[n][0][i]) if out[n][1][i] else None
+                          for n in ("mn", "mx"))
+           for i, kk in enumerate(out["k"][0])}
+    exp = pa.table({"k": k, "b": pa.array(b, mask=~bv)}).group_by("k") \
+        .aggregate([("b", "min"), ("b", "max")]).to_pylist()
+    assert got == {r["k"]: (r["b_min"], r["b_max"]) for r in exp}
+    assert got == {1: (False, True), 2: (True, True), 3: (None, None)}

@@ -67,7 +67,7 @@ def test_bad_envelopes_raise():
 
 
 def test_node_kind_outside_the_slice_raises():
-    plan = JP.RenameColumns(child=TP.reduce_plan(), names=("k", "s", "c"))
-    with pytest.raises(NotImplementedError, match="rename_columns"):
+    plan = JP.Debug(child=TP.reduce_plan(), debug_id="d")
+    with pytest.raises(NotImplementedError, match="debug"):
         serde.deserialize(jserde.serialize(
             JP.TaskDefinition(plan=plan), codec="zlib"))

@@ -20,8 +20,9 @@
   through the merge's frontier and through equality, held to Spark's
   join (-0.0 joins 0.0, NaN joins NaN); the JAX package joins no NaN
   key (ROADMAP Queue 3 item 15).
-- NotImplementedError for a string join key, the `partitioned` probe
-  strategy and the merge's giant-group escape.
+- A string join key, which joins as the reference's; NotImplementedError
+  for the `partitioned` probe strategy and the merge's giant-group
+  escape.
 """
 
 import dataclasses
@@ -470,14 +471,19 @@ def test_reference_joins_no_nan_key():
 # -- what the port refuses ----------------------------------------------------
 
 def test_string_join_key_is_refused():
+    """A string key was refused until `string_eq` came to the port; it
+    now joins as the reference does (tests/test_torch_string_compare.py
+    holds every join type and width)."""
     from auron_tpu_torch.ir import serde
+    ls, rs, left_rbs, right_rbs = _default_sides()
     plan = dataclasses.replace(
         join_plan("hash_right", "inner"),
         on=JP.JoinOn(left_keys=(JE.col("ls"),), right_keys=(JE.col("rs"),)))
     data = jserde.serialize(JP.TaskDefinition(plan=plan))
-    with pytest.raises(NotImplementedError, match="string_eq"):
-        execute_task_bytes(data, ResourceRegistry(), device="cpu")
     assert serde.deserialize(data).plan.on.left_keys[0].name == "ls"
+    port, ref = run_join(plan, left_rbs, right_rbs)
+    assert port.num_rows > 0
+    assert compare.compare_tables(port, ref, ordered=True) is None
 
 
 def test_partitioned_probe_is_refused():

@@ -18,7 +18,7 @@ import torch_parity as TP
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "auron_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tools" / "chip_q27r.py"]
 FORBIDDEN = ("jax", "jaxlib", "auron_tpu")
 LAZY_ONLY = ("pyarrow", "zstandard")
 

@@ -355,18 +355,20 @@ def test_string_case_and_literals_match_the_reference():
 @pytest.mark.parametrize("kind", ["binary", "not", "negative", "sc_and",
                                   "in_list", "cast", "case", "CASE"])
 def test_other_kinds_over_strings_raise(kind):
-    """Raised where the expression is built, before any batch: `case`
-    with a string condition, `CASE` a string CASE with an int branch."""
+    """Raised where the expression is built, before any batch: `binary`
+    an arithmetic op of strings, `in_list` a string IN a list of ints,
+    `case` with a string condition, `CASE` a string CASE with an int
+    branch (a comparison of strings and a string IN string values run
+    since string equality came to the port)."""
     from auron_tpu_torch.exprs.compiler import build_evaluator
     from auron_tpu_torch.ir import expr as E
     s, b = E.col("s"), E.col("b")
     one = E.Literal(value=1, dtype=DataType.int32())
-    expr = {"binary": E.BinaryExpr(left=s, op="==", right=s),
+    expr = {"binary": E.BinaryExpr(left=s, op="+", right=s),
             "not": E.Not(child=s),
             "negative": E.Negative(child=s),
             "sc_and": E.ScAnd(left=b, right=s),
-            "in_list": E.InList(child=s, values=(
-                E.Literal(value="a", dtype=DataType.string()),)),
+            "in_list": E.InList(child=s, values=(one,)),
             "cast": E.Cast(child=s, dtype=DataType.int32()),
             "case": E.Case(branches=(E.WhenThen(when=s, then=one),)),
             "CASE": E.Case(branches=(E.WhenThen(when=b, then=s),),

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 import pyarrow as pa
+import pytest
+import torch
 
 from auron_tpu.ir import expr as JE
 from auron_tpu.ir import plan as JP
@@ -225,3 +227,14 @@ def assert_same_rows(got, exp, names, float_rel=0.0):
                                        err_msg=name)
         else:
             np.testing.assert_array_equal(gd, ed, err_msg=name)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread for a module that imports this fixture:
+    its CPU runs are thousands of small ops, and the test workers'
+    threads would otherwise contend for the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
