@@ -143,3 +143,16 @@ conf.define(
     "build side's sorted key hashes; 'partitioned' = the JAX package's "
     "bucket-partitioned probe index, not in the port yet (raises); "
     "'auto' = searchsorted on every device of the port.")
+conf.define(
+    "auron.spmd.singleDevice.enable", True,
+    "Offer every converted query first to the stage executor "
+    "(parallel/stage.py), which evaluates each operator once over whole "
+    "device tables; a plan it rejects runs the serial per-partition "
+    "path of frontend/session.py.")
+conf.define(
+    "auron.spmd.source.cache.mb", 4096,
+    "Device-byte budget (MB) of the stage executor's source cache: a "
+    "source table stays on the device across executes, keyed by (table "
+    "identity, device, string layout), so a repeat execute uploads "
+    "nothing.  0 disables; least recently used entries go first past "
+    "the budget.")

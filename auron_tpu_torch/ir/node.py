@@ -96,6 +96,21 @@ class Node:
             out[f.name] = _encode(getattr(self, f.name))
         return out
 
+    def children_nodes(self):
+        """All direct child Nodes (exprs or plans), for tree walks."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, Node):
+                out.append(v)
+            elif isinstance(v, tuple):
+                for x in v:
+                    if isinstance(x, Node):
+                        out.append(x)
+                    elif isinstance(x, tuple):
+                        out.extend(y for y in x if isinstance(y, Node))
+        return out
+
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Node":
         kind = d["@kind"]

@@ -2,11 +2,11 @@
 
 The nodes of the port's stages: the FFI and IPC readers, empty
 partitions, projection, filter, limit, aggregation, expand, the window
-(its function calls and group limit), rename, coalesce batches, sort,
-the joins (sort-merge, shuffled hash, broadcast and its build-map
+(its function calls and group limit), rename, coalesce batches, debug,
+sort, the joins (sort-merge, shuffled hash, broadcast and its build-map
 stage), the union, the RSS shuffle writer with its partitioning, and
-the `TaskDefinition` a front end ships.  Fields and
-`kind` tags are the JAX package's, so their JSON is the same.
+the `TaskDefinition` a front end ships.  Fields and `kind` tags are the
+JAX package's, so their JSON is the same.
 """
 
 from __future__ import annotations
@@ -162,6 +162,15 @@ class CoalesceBatches(PlanNode):
     kind: ClassVar[str] = "coalesce_batches"
     child: PlanNode = None  # type: ignore[assignment]
     target_batch_size: int = 0    # 0 = use config default
+
+
+@register
+@dataclass(frozen=True)
+class Debug(PlanNode):
+    """Pass-through that logs the batches it streams."""
+    kind: ClassVar[str] = "debug"
+    child: PlanNode = None  # type: ignore[assignment]
+    debug_id: str = ""
 
 
 @register

@@ -1,10 +1,11 @@
 """Basic operators (counterpart of auron_tpu/ops/basic.py): projection,
 filter (with its fused projection), limit, union, expand, coalesce
-batches, rename and empty partitions."""
+batches, rename, debug and empty partitions."""
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Iterator, List, Optional, Tuple
 
 import torch
@@ -200,6 +201,26 @@ class RenameColumnsExec(Operator):
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
         for b in self.child_stream(ctx):
             yield b.rename(self.names)
+
+
+class DebugExec(Operator):
+    """Pass-through that logs each batch's row count and first 10 rows
+    to the `auron_tpu_torch.debug` logger at INFO.  The rows are read
+    back from the device only while that level is enabled."""
+
+    def __init__(self, child: Operator, debug_id: str = ""):
+        super().__init__(child.schema, [child])
+        self.debug_id = debug_id
+
+    def execute(self, ctx: TaskContext) -> Iterator[Batch]:
+        log = logging.getLogger("auron_tpu_torch.debug")
+        for i, b in enumerate(self.child_stream(ctx)):
+            if log.isEnabledFor(logging.INFO):
+                arrays, _ = b.head(10).to_numpy()
+                log.info("[%s] batch %d: %d rows\n%s", self.debug_id, i,
+                         b.num_rows, dict(zip(self.schema.names(),
+                                              (a.tolist() for a in arrays))))
+            yield b
 
 
 class EmptyPartitionsExec(Operator):

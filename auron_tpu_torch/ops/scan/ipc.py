@@ -5,7 +5,9 @@ auron_tpu/ops/scan/ipc.py).
 iterable whose items are `(arrays, validities)` pairs of numpy columns
 (the Arrow C-Data import's counterpart; a None validity means no nulls;
 a string column an object array of `str` or `bytes`) or
-`pyarrow.RecordBatch`es; each is uploaded to the task's device.
+`pyarrow.RecordBatch`es; each is uploaded to the task's device.  A
+partition-indexed resource (`SourceTable`, one item list a partition)
+gives a task the items of its own partition.
 pyarrow is imported only when such a batch arrives.  A string longer
 than `auron.string.device.max.width` raises (`columnar/batch.py`).
 
@@ -17,7 +19,7 @@ are not in this slice.
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -53,13 +55,69 @@ class FFIReaderExec(Operator):
         self.resource_id = resource_id
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
-        for item in ctx.resources.get(self.resource_id):
-            if isinstance(item, tuple):
-                arrays, validities = item
-            else:
-                arrays, validities = arrow_to_numpy(item)
+        src = ctx.resources.get(self.resource_id)
+        if hasattr(src, "for_partition"):
+            src = src.for_partition(ctx.partition_id)
+        for item in src:
+            arrays, validities = item_columns(item)
             yield from_numpy(self.schema, arrays, validities,
                              device=ctx.device)
+
+
+def item_columns(item):
+    """(arrays, validities) of an FFI item: a pair as it is, a
+    RecordBatch through `arrow_to_numpy`."""
+    return item if isinstance(item, tuple) else arrow_to_numpy(item)
+
+
+class SourceTable:
+    """A front end's table as FFI items, one list a partition: the
+    serial path's task p reads `for_partition(p)`, the stage executor
+    the whole table (`columns`).  Tables are immutable: the stage
+    executor's source cache keys them by identity."""
+
+    def __init__(self, parts: List[list],
+                 whole: Optional[tuple] = None):
+        self.parts = [list(p) for p in parts]
+        self._whole = whole
+
+    @classmethod
+    def from_columns(cls, arrays: Sequence, validities: Sequence,
+                     n_parts: int = 1,
+                     batch_rows: int = 8192) -> "SourceTable":
+        """Rows cut into `n_parts` contiguous splits (split k holds rows
+        [k n / parts, (k + 1) n / parts)), each into items of at most
+        `batch_rows` rows (views)."""
+        n = len(arrays[0])
+        parts = []
+        for k in range(n_parts):
+            lo, hi = k * n // n_parts, (k + 1) * n // n_parts
+            parts.append([([a[s:min(s + batch_rows, hi)] for a in arrays],
+                           [v[s:min(s + batch_rows, hi)]
+                            for v in validities])
+                          for s in range(lo, hi, batch_rows)])
+        return cls(parts, (list(arrays), list(validities)))
+
+    def for_partition(self, pid: int) -> list:
+        return self.parts[pid] if pid < len(self.parts) else []
+
+    def __iter__(self):
+        return (item for p in self.parts for item in p)
+
+    def columns(self, n_cols: int):
+        """(arrays, validities) of every row, partitions in order."""
+        if self._whole is not None:
+            return self._whole
+        items = [item_columns(it) for it in self]
+        if not items:
+            return [np.zeros(0)] * n_cols, [np.zeros(0, bool)] * n_cols
+        arrays = [np.concatenate([it[0][i] for it in items])
+                  for i in range(n_cols)]
+        validities = [np.concatenate([
+            np.ones(len(it[0][i]), bool) if it[1] is None or
+            it[1][i] is None else np.asarray(it[1][i], bool)
+            for it in items]) for i in range(n_cols)]
+        return arrays, validities
 
 
 def arrow_to_numpy(rb):

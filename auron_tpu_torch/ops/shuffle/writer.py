@@ -157,6 +157,12 @@ class InProcessShuffleService:
             entries = list(self._blocks.get((shuffle_id, reduce_pid), []))
         return [blk for _mid, blk in sorted(entries, key=lambda e: e[0])]
 
+    def clear(self, shuffle_id: str) -> None:
+        """Drop every block of one exchange."""
+        with self._lock:
+            for key in [k for k in self._blocks if k[0] == shuffle_id]:
+                del self._blocks[key]
+
 
 class _InProcessWriter(RssPartitionWriter):
     """Stages locally and commits in flush(): a map task run again

@@ -97,8 +97,16 @@ class WindowExec(Operator):
 
     def _process_batches(self, batches: List[Batch]) -> Iterator[Batch]:
         n = sum(b.num_rows for b in batches)
-        cap = bucket_capacity(n)
-        merged = concat_batches(self.children[0].schema, batches, cap)
+        merged = concat_batches(self.children[0].schema, batches,
+                                bucket_capacity(n))
+        result = self.window_batch(merged)
+        if result is not None:
+            yield from _rechunk(result, int(conf.get("auron.batch.size")))
+
+    def window_batch(self, merged: Batch) -> Optional[Batch]:
+        """The window over every row of one padded batch, as one batch
+        (None when the group limit keeps no row)."""
+        n, cap = merged.num_rows, merged.capacity
         pcols = self._part_eval(merged)
         ocols = self._order_eval(merged)
         orders = tuple((s.asc, s.nulls_first) for s in self.order_by)
@@ -129,10 +137,10 @@ class WindowExec(Operator):
                     <= self.group_limit.k) & live
             idx, cnt = compact_indices(keep)
             if cnt == 0:
-                return
+                return None
             result = result.gather(torch.nn.functional.pad(
                 idx, (0, bucket_capacity(cnt) - cnt)), cnt)
-        yield from _rechunk(result, int(conf.get("auron.batch.size")))
+        return result
 
     def _default(self, wf: WindowFuncCall, b: Batch) -> Optional[Column]:
         """lead/lag's default value (its third argument, a literal), a

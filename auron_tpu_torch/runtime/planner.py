@@ -10,8 +10,8 @@ from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ops.agg.exec import AggExec
 from auron_tpu_torch.ops.base import Operator
 from auron_tpu_torch.ops.basic import (
-    CoalesceBatchesExec, EmptyPartitionsExec, ExpandExec, FilterExec,
-    LimitExec, ProjectExec, RenameColumnsExec, UnionExec,
+    CoalesceBatchesExec, DebugExec, EmptyPartitionsExec, ExpandExec,
+    FilterExec, LimitExec, ProjectExec, RenameColumnsExec, UnionExec,
 )
 from auron_tpu_torch.ops.joins import (
     BroadcastJoinBuildHashMapExec, BroadcastJoinExec, HashJoinExec,
@@ -44,6 +44,8 @@ class PhysicalPlanner:
             "window": lambda n: WindowExec(
                 self.create_plan(n.child), n.window_funcs, n.partition_by,
                 n.order_by, n.group_limit, n.output_window_cols),
+            "debug": lambda n: DebugExec(self.create_plan(n.child),
+                                         n.debug_id),
             "rename_columns": lambda n: RenameColumnsExec(
                 self.create_plan(n.child), n.names),
             "coalesce_batches": lambda n: CoalesceBatchesExec(

@@ -169,7 +169,17 @@ the sources in this checkout.  Phases, each fatal on failure:
     broadcast joins with date_dim's rows of March 1999 and item's
     i_manufact_id -> Projection, under one Union of 14 partitions whose
     tasks stream their assignments -> partial Sum by i_manufact_id ->
-    hash(4); final -> Sort fetch 100; check the sums against numpy.
+    hash(4); final -> Sort fetch 100; check the sums against numpy;
+25. run q01, q13a and q65w whole through the port's session
+    (`AuronSession.execute_converted`) on the data and plans of phases
+    17, 21 and 22 (`from_stage_plans` over `join_query_plans`): each on
+    the stage executor (`spmd` true), a cold execute and a warm one
+    (which uploads nothing), each equal to its phase's serial result
+    and to numpy, neither kernel launched; print wall time, host syncs,
+    bytes uploaded and peak memory of each; profile q01's warm stage
+    execute; run q01 once more with `auron.spmd.singleDevice.enable`
+    off, through the session's serial path: equal to phase 17, with
+    phase 17's tasks and kernel launches.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -2140,6 +2150,13 @@ def check_q01_top(out, blocks, jcols, offsets):
                     if kind == "f64" else list(vals[ci]) == list(want)):
                 raise AssertionError(f"q01 take-ordered: task {p}'s "
                                      f"{name} differs from Python's sort")
+    return check_q01_ids(out, jcols)
+
+
+def check_q01_ids(out, jcols):
+    """q01's result, the top 100 c_customer_id, is the first 100 of the
+    join's rows as Python sorts them."""
+    import heapq
     top = heapq.nsmallest(100, range(len(jcols[0])),
                           key=lambda i: _q01_key(jcols, i))
     ids, idv = out["c_customer_id"]
@@ -3613,6 +3630,149 @@ def check_windows(scols, svalid, cols, valid, dev, card: str) -> None:
           f"({secs[1]:.3f} s) | {card}")
 
 
+# ---------------------------------------------------------------------------
+# the session and the stage executor: q01, q13a and q65w whole-table
+# (phase 25)
+# ---------------------------------------------------------------------------
+
+STAGE_QUERIES = ("q01", "q13a", "q65w")
+
+
+def session_query(name, tables, n_maps):
+    """(root, ConvertContext, sources) of a query as its phase runs it:
+    `from_stage_plans` over `join_query_plans`, each table a SourceTable
+    split `n_maps[table]` ways into batch-size items, as
+    `join_stage_task` feeds a task."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend.converters import from_stage_plans
+    from auron_tpu_torch.ops.scan.ipc import SourceTable
+    root, ctx = from_stage_plans(join_query_plans(name, n_maps), n_maps)
+    bs = int(conf.get("auron.batch.size"))
+    sources = {t: SourceTable.from_columns(cols, valid, n_maps.get(t, 1),
+                                           bs)
+               for t, (cols, valid) in tables.items()}
+    return root, ctx, sources
+
+
+def same_result(what, got, exp) -> None:
+    """The same rows in the same order: validity, keys, counts and
+    strings exact, float columns to relative 1e-9 (another summation
+    order)."""
+    for name, (d, v) in exp.items():
+        gd, gv = got[name]
+        ok = len(gd) == len(d) and np.array_equal(gv, v)
+        if ok and d.dtype.kind == "f":
+            ok = np.allclose(gd[gv], d[v], rtol=1e-9, atol=0)
+        elif ok:
+            ok = list(gd[gv]) == list(d[v])
+        if not ok:
+            raise AssertionError(f"phase 25: {what}: column {name} "
+                                 f"differs")
+
+
+def count_syncs(fn) -> int:
+    """The synchronizing CUDA operations torch's sync debug mode flags
+    while `fn` runs (one warning each)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_stage_queries(queries, dev, K, card: str) -> dict:
+    """Each of `queries`, {name: (tables, n_maps, serial out, numpy
+    check)}, through the session twice, cold (the source cache emptied)
+    and warm: the stage path, the serial result, numpy's check, no
+    kernel launch, nothing uploaded when warm.  Returns the launches of
+    each query's two executes."""
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.parallel.stage import clear_source_caches
+    session = AuronSession()
+    launches = {}
+    for name, (tables, n_maps, serial, check) in queries.items():
+        root, ctx, sources = session_query(name, tables, n_maps)
+        clear_source_caches()
+        K.reset_launches()
+        warm_bytes = None
+        for run in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = session.execute_converted(root, ctx, sources, dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not res.spmd:
+                raise AssertionError(f"phase 25: {name} fell back to the "
+                                     f"serial path: {res.spmd_rejection}")
+            same_result(f"{name} {run} against its serial result",
+                        res.columns, serial)
+            checked = check(res.columns)
+            m = res.metrics
+            warm_bytes = m["bytes_uploaded"]
+            print(f"phase 25: {name} {run} stage execute {secs:.4f} s, "
+                  f"{m['host_syncs']} host syncs, {m['bytes_uploaded']} "
+                  f"bytes uploaded ({m['source_cache_hits']} source cache "
+                  f"hits), {m['gathered_rows']} rows gathered, "
+                  f"{res.num_rows} out ({checked} equal to numpy), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                  f"| {card}")
+        launches[name] = dict(K.LAUNCHES)
+        if warm_bytes != 0 or any(launches[name].values()):
+            raise AssertionError(f"phase 25: {name}: the warm execute "
+                                 f"uploaded {warm_bytes} bytes; launches "
+                                 f"{launches[name]}")
+    return launches
+
+
+def run_session_serial(name, tables, n_maps, serial, dev, K, card: str):
+    """One execute with the stage executor off: the session's serial
+    path.  Returns (launches, serial tasks)."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend.session import AuronSession
+    root, ctx, sources = session_query(name, tables, n_maps)
+    K.reset_launches()
+    with conf.scoped({"auron.spmd.singleDevice.enable": False}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = AuronSession().execute_converted(root, ctx, sources, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if res.spmd:
+        raise AssertionError(f"phase 25: {name} took the stage path with "
+                             f"it off")
+    same_result(f"{name} serial session against its phase", res.columns,
+                serial)
+    launches = dict(K.LAUNCHES)
+    tasks = res.metrics["serial_tasks"]
+    print(f"phase 25: {name} through the session's serial path "
+          f"{secs:.3f} s, {tasks} tasks, {launches['hash_partition_ids_i64']} "
+          f"hash-pid, {launches['radix_bucket_hist']} radix-hist launches "
+          f"| {card}")
+    return launches, tasks
+
+
+def profile_stage_query(name, tables, n_maps, dev, card: str) -> None:
+    """Where q01's warm stage execute goes (profile_task), and the host
+    syncs torch's sync debug mode sees in one more warm execute."""
+    from auron_tpu_torch.frontend.session import AuronSession
+    root, ctx, sources = session_query(name, tables, n_maps)
+    session = AuronSession()
+
+    def execute():
+        return session.execute_converted(root, ctx, sources, dev)
+    execute()
+    profile_task(f"phase 25: {name} warm stage execute", execute, card)
+    counted = execute().metrics["host_syncs"]
+    print(f"phase 25: {name} warm stage execute: {count_syncs(execute)} "
+          f"synchronizing operations seen by torch's sync debug mode, "
+          f"{counted} host syncs counted by the executor | {card}")
+
+
 def check_path_shapes(K, dev, rng, shapes) -> dict:
     """Phase 15, run last: each kernel at each (kernel, rows, n_parts) a
     path of phases 3-14, 16-18 and 21-24 gave it, held bit-exact against its
@@ -3945,10 +4105,10 @@ def main() -> int:
     print(f"phase 17: {len(ccols[0])} customer rows made in "
           f"{time.perf_counter() - t:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    q = JoinQuery("q01", {"store_returns": (rcols, rvalid),
-                          "customer": (ccols, cvalid)},
-                  {"store_returns": N_RETURN_MAPS,
-                   "customer": N_CUSTOMER_MAPS}, dev, K).run()
+    q01_tables = {"store_returns": (rcols, rvalid),
+                  "customer": (ccols, cvalid)}
+    q01_maps = {"store_returns": N_RETURN_MAPS, "customer": N_CUSTOMER_MAPS}
+    q = JoinQuery("q01", q01_tables, q01_maps, dev, K).run()
     q.report(17, card)
     shapes += q.shapes
     q01_whole_launches = q.total_launches()
@@ -3970,7 +4130,11 @@ def main() -> int:
           f"join's {len(jcols[0])} rows and the top 100 c_customer_id "
           f"({first} .. {last}) equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    del q, jcols, jvalid, ccols, cvalid, rcols, rvalid
+    # phase 25 runs q01 again through the session
+    stage_inputs = {"q01": (q01_tables, q01_maps, q.out(),
+                            lambda out: check_q01_ids(out, jcols))}
+    q01_tasks = sum(len(r) for r in q.results.values())
+    del q, jvalid, ccols, cvalid, rcols, rvalid
 
     scols, svalid = make_string_keys(args.seed,
                                      min(STRING_KEY_ROWS, args.rows))
@@ -4003,15 +4167,18 @@ def main() -> int:
           f"{time.perf_counter() - t:.2f} s")
     ss = ([date_sk, store_k, cols[1], cols[2], profit],
           [date_v, store_v, valid[1], valid[2], profit_v])
-    q = run_slice9_query("q13a", {
-        "store_sales": ss, "store": store,
-        "date_dim": ([dsk, dyear], dvalid[:2])},
-        {"store_sales": N_MAPS, "store": 1, "date_dim": 1}, dev, K, card)
+    q13a_tables = {"store_sales": ss, "store": store,
+                   "date_dim": ([dsk, dyear], dvalid[:2])}
+    q13a_maps = {"store_sales": N_MAPS, "store": 1, "date_dim": 1}
+    q = run_slice9_query("q13a", q13a_tables, q13a_maps, dev, K, card)
     shapes += q.shapes
     slice9_launches["q13a"] = q.total_launches()
     print(f"phase 21: q13a whole: its {check_q13a(q.out(), *ss)} state "
           f"groups equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    stage_inputs["q13a"] = (q13a_tables, q13a_maps, q.out(),
+                            functools.partial(check_q13a, ss=ss[0],
+                                              ssv=ss[1]))
     del q, ss
     ss = ([item_k, store_k, cols[2], cols[1]],
           [ones, store_v, valid[2], valid[1]])
@@ -4020,6 +4187,9 @@ def main() -> int:
     shapes += q.shapes
     slice9_launches["q65w"] = q.total_launches()
     groups = check_q65w(q.out(), ss[0][:3], ss[1][:3])
+    stage_inputs["q65w"] = ({"store_sales": ss}, {"store_sales": N_MAPS},
+                            q.out(), functools.partial(
+                                check_q65w, ss=ss[0][:3], ssv=ss[1][:3]))
     window_rows = [sum(b.num_rows for b in part)
                    for part in q.blocks["shuffle:q65w:1"]]
     print(f"phase 22: q65w whole: {groups} (store, item) groups, window "
@@ -4070,6 +4240,22 @@ def main() -> int:
     print(f"phases 19 (string keys) and 20-24: "
           f"{time.perf_counter() - new_phases:.1f} s | {card}")
 
+    new_phases = time.perf_counter()
+    stage_launches = run_stage_queries(stage_inputs, dev, K, card)
+    profile_stage_query("q01", q01_tables, q01_maps, dev, card)
+    serial_launches, serial_tasks = run_session_serial(
+        "q01", q01_tables, q01_maps, stage_inputs["q01"][2], dev, K, card)
+    if serial_tasks != q01_tasks or serial_launches != q01_whole_launches:
+        raise AssertionError(
+            f"phase 25: q01's serial session ran {serial_tasks} tasks with "
+            f"{serial_launches}; phase 17 {q01_tasks} with "
+            f"{q01_whole_launches}")
+    print(f"phase 25: q01, q13a and q65w on the stage path equal their "
+          f"serial results and numpy with no kernel launch, the serial "
+          f"session's q01 phase 17's with its {serial_tasks} tasks' "
+          f"launches: {time.perf_counter() - new_phases:.1f} s | {card}")
+    del stage_inputs, q01_tables, jcols
+
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
         max(hist_err, errs["hist"])
@@ -4094,7 +4280,10 @@ def main() -> int:
             "q41d": q41d_launches["hash_partition_ids_i64"],
             "q01": q01_whole_launches["hash_partition_ids_i64"],
             "string_keys": string_launches["hash_partition_ids_i64"],
-            **{q: la["hash_partition_ids_i64"] for q, la in slice9_launches.items()}},
+            **{q: la["hash_partition_ids_i64"] for q, la in slice9_launches.items()},
+            **{f"{q}_stage": la["hash_partition_ids_i64"]
+               for q, la in stage_launches.items()},
+            "q01_session_serial": serial_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -4115,7 +4304,10 @@ def main() -> int:
             "q41d": q41d_launches["radix_bucket_hist"],
             "q01": q01_whole_launches["radix_bucket_hist"],
             "string_keys": string_launches["radix_bucket_hist"],
-            **{q: la["radix_bucket_hist"] for q, la in slice9_launches.items()}},
+            **{q: la["radix_bucket_hist"] for q, la in slice9_launches.items()},
+            **{f"{q}_stage": la["radix_bucket_hist"]
+               for q, la in stage_launches.items()},
+            "q01_session_serial": serial_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ import zlib
 
 import pytest
 
+from auron_tpu.ir import expr as JE
 from auron_tpu.ir import plan as JP
 from auron_tpu.ir import serde as jserde
+from auron_tpu.ir.schema import DataType as JDT
 from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ir import serde
 
@@ -67,7 +69,10 @@ def test_bad_envelopes_raise():
 
 
 def test_node_kind_outside_the_slice_raises():
-    plan = JP.Debug(child=TP.reduce_plan(), debug_id="d")
-    with pytest.raises(NotImplementedError, match="debug"):
+    plan = JP.Generate(child=TP.reduce_plan(), generator="explode",
+                       args=(JE.col("ss_customer_sk"),),
+                       generator_output_names=("x",),
+                       generator_output_types=(JDT.int64(),))
+    with pytest.raises(NotImplementedError, match="generate"):
         serde.deserialize(jserde.serialize(
             JP.TaskDefinition(plan=plan), codec="zlib"))

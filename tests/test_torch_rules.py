@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,7 +59,15 @@ def test_port_files_found():
             "sort_keys.py", "radix_sort.py", "strategy.py",
             "partitioner.py", "writer.py", "typing.py", "cast.py",
             "compiler.py", "segments.py", "basic.py", "functions.py",
-            "exec.py", "ipc.py", "planner.py"} <= names
+            "exec.py", "ipc.py", "planner.py", "session.py", "stage.py",
+            "converters.py"} <= names
+
+
+def test_import_rules_cover_the_session_and_stage_modules():
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"auron_tpu_torch/frontend/session.py",
+            "auron_tpu_torch/frontend/converters.py",
+            "auron_tpu_torch/parallel/stage.py"} <= rel
 
 
 def test_import_leaves_jax_out():
@@ -77,8 +86,9 @@ def test_import_leaves_jax_out():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Without a card and without device='cpu', execute_task_bytes raises
-    before it reads any input."""
+    """Without a card and without device='cpu', execute_task_bytes, the
+    session's execute_converted and the stage executor's
+    execute_plan_stage raise before they read any input."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pulled = []
 
@@ -100,6 +110,41 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert not pulled
     out = executor.execute_task_bytes(data, res, device="cpu")
     assert pulled and out.batches == []
+    _session_and_stage_entries(monkeypatch)
+
+
+def _session_and_stage_entries(monkeypatch):
+    from auron_tpu_torch.frontend.converters import from_stage_plans
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    from auron_tpu_torch.ops.scan.ipc import SourceTable
+    from auron_tpu_torch.parallel.stage import execute_plan_stage
+
+    class Counted(SourceTable):
+        def columns(self, n_cols):
+            pulled.append(1)
+            return super().columns(n_cols)
+
+        def for_partition(self, pid):
+            pulled.append(1)
+            return super().for_partition(pid)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pulled = []
+    schema = Schema.of(Field("k", DataType.int64()))
+    root, ctx = from_stage_plans({"root": P.FFIReader(
+        schema=schema, resource_id="src")})
+    src = {"src": Counted.from_columns([np.arange(5, dtype=np.int64)],
+                                       [np.ones(5, bool)])}
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            AuronSession().execute_converted(root, ctx, src, device=dev)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            execute_plan_stage(root, ctx, src, device=dev)
+    assert not pulled
+    res = AuronSession().execute_converted(root, ctx, src, device="cpu")
+    assert pulled and res.spmd and res.num_rows == 5
 
 
 def test_kernel_wrapper_never_falls_back(monkeypatch):
