@@ -1,7 +1,7 @@
 """Typed configuration registry (counterpart of auron_tpu/config.py).
 
-Only the options this slice of the port reads, under the JAX package's
-names and defaults, so one conf map configures both engines.  Lookup
+Only the options the port reads, under the JAX package's names and
+defaults, so one conf map configures both engines.  Lookup
 order: a `scoped` override, then the `AURON_TPU_*` environment variable,
 then the default.  Options of the port's own go under `auron.torch.*`.
 """
@@ -156,3 +156,38 @@ conf.define(
     "identity, device, string layout), so a repeat execute uploads "
     "nothing.  0 disables; least recently used entries go first past "
     "the budget.")
+conf.define(
+    "auron.enable", True,
+    "Master switch: when false the session leaves foreign plans "
+    "untouched and runs them on its foreign engine (reference: "
+    "spark.auron.enable).")
+
+# per-operator enable switches of the converter (reference:
+# SparkAuronConfiguration:312-496)
+for _op in (
+    "project", "filter", "sort", "agg", "limit", "union", "expand", "window",
+    "generate", "parquet.scan", "orc.scan", "parquet.sink", "orc.sink",
+    "shuffle", "smj", "shj", "bhj", "ffi.reader", "coalesce.batches",
+    "rename.columns", "empty.partitions", "debug", "kafka.scan",
+):
+    conf.define(f"auron.enable.{_op}", True, f"Enable native {_op} operator.")
+
+conf.define(
+    "auron.force.shuffled.hash.join", False,
+    "Convert a sort-merge join into a shuffled hash join when both are "
+    "legal (reference: ForceApplyShuffledHashJoinInjector).")
+conf.define(
+    "auron.adaptive.fuse.adjacency.enable", False,
+    "Keep a scan's pushed filter also as a Filter above it when the "
+    "adaptive cost model says so.  The cost model is not in the port "
+    "yet: the converter raises when this is on and a scan has a pushed "
+    "filter.")
+conf.define(
+    "auron.decimal.arith.enable", True,
+    "Convert +, -, *, / over decimals, MakeDecimal and CheckOverflow.")
+conf.define(
+    "auron.caseconvert.functions.enable", True,
+    "Convert lower() and upper().")
+conf.define(
+    "auron.datetime.extract.enable", True,
+    "Convert hour(), minute() and second().")

@@ -172,3 +172,23 @@ class AggExpr(Node):
 def col(name: str) -> Column:
     return Column(name=name)
 
+
+
+def _infer_literal_type(value: Any) -> DataType:
+    if value is None:
+        return DataType.null()
+    if isinstance(value, bool):
+        return DataType.bool_()
+    if isinstance(value, int):
+        if value < -(2**63) or value > 2**63 - 1:
+            raise OverflowError(f"integer literal {value} exceeds int64 range")
+        if -(2**31) <= value <= 2**31 - 1:
+            return DataType.int32()
+        return DataType.int64()
+    if isinstance(value, float):
+        return DataType.float64()
+    if isinstance(value, str):
+        return DataType.string()
+    if isinstance(value, bytes):
+        return DataType.binary()
+    raise TypeError(f"cannot infer literal type for {value!r}")

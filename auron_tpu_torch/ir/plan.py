@@ -7,6 +7,11 @@ sort, the joins (sort-merge, shuffled hash, broadcast and its build-map
 stage), the union, the RSS shuffle writer with its partitioning, and
 the `TaskDefinition` a front end ships.  Fields and `kind` tags are the
 JAX package's, so their JSON is the same.
+
+The file scans (`ParquetScan`, `OrcScan` and their `FileGroup`s) are
+data only, so that a converted plan equals the JAX package's: the port
+reads no file (`SCANS_NOT_PORTED`), and the planner and the session
+raise on them.
 """
 
 from __future__ import annotations
@@ -35,6 +40,52 @@ class Partitioning(Node):
     expressions: Tuple[Expr, ...] = ()          # hash keys
     sort_orders: Tuple[SortExpr, ...] = ()      # range partitioning orders
     range_bounds: Tuple[Any, ...] = ()          # sampled bound rows (tuples)
+
+
+SCANS_NOT_PORTED = ("the parquet and ORC scans are not in auron_tpu_torch "
+                    "yet (ROADMAP Queue 1 item 13); register a convert "
+                    "provider that claims the scan and a foreign engine "
+                    "that reads it")
+
+
+@register
+@dataclass(frozen=True)
+class FileGroup(Node):
+    kind: ClassVar[str] = "file_group"
+    paths: Tuple[str, ...] = ()
+    # per-file (offset, length) splits; empty = whole file
+    ranges: Tuple[Tuple[int, int], ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class ParquetScan(PlanNode):
+    kind: ClassVar[str] = "parquet_scan"
+    schema: Schema = None  # type: ignore[assignment]
+    file_groups: Tuple[FileGroup, ...] = ()       # one group per partition
+    projection: Tuple[int, ...] = ()              # column indices ( () = all )
+    predicate: Optional[Expr] = None              # pushed-down filter
+    partition_schema: Optional[Schema] = None     # hive partition columns
+    partition_values: Tuple[Tuple[Any, ...], ...] = ()
+
+
+@register
+@dataclass(frozen=True)
+class OrcScan(PlanNode):
+    kind: ClassVar[str] = "orc_scan"
+    schema: Schema = None  # type: ignore[assignment]
+    file_groups: Tuple[FileGroup, ...] = ()
+    projection: Tuple[int, ...] = ()
+    predicate: Optional[Expr] = None
+    positional_evolution: bool = False
+
+
+def scan_output_schema(n) -> Schema:
+    """A file scan's output: its projected columns, then the partition
+    columns (the JAX package's scan operators' schema)."""
+    out = n.schema.select(tuple(n.projection) or range(len(n.schema)))
+    part = getattr(n, "partition_schema", None)
+    return out.concat(part) if part else out
 
 
 @register

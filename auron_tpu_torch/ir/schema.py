@@ -72,7 +72,12 @@ class DataType:
     @staticmethod
     def int64() -> "DataType": return DataType(TypeId.INT64)
     @staticmethod
+    def float32() -> "DataType": return DataType(TypeId.FLOAT32)
+    @staticmethod
     def float64() -> "DataType": return DataType(TypeId.FLOAT64)
+    @staticmethod
+    def decimal(precision: int, scale: int) -> "DataType":
+        return DataType(TypeId.DECIMAL, precision=precision, scale=scale)
     @staticmethod
     def date32() -> "DataType": return DataType(TypeId.DATE32)
     @staticmethod
@@ -81,6 +86,16 @@ class DataType:
     def string() -> "DataType": return DataType(TypeId.STRING)
     @staticmethod
     def binary() -> "DataType": return DataType(TypeId.BINARY)
+    @staticmethod
+    def list_(value: "DataType") -> "DataType":
+        return DataType(TypeId.LIST, children=(Field("item", value),))
+    @staticmethod
+    def map_(key: "DataType", value: "DataType") -> "DataType":
+        return DataType(TypeId.MAP, children=(Field("key", key, nullable=False),
+                                              Field("value", value)))
+    @staticmethod
+    def struct(fields: Tuple["Field", ...]) -> "DataType":
+        return DataType(TypeId.STRUCT, children=tuple(fields))
 
     @property
     def is_integral(self) -> bool: return self.id in _INTEGRAL
@@ -151,3 +166,9 @@ class Schema:
     def rename(self, names) -> "Schema":
         return Schema(tuple(Field(n, f.dtype, f.nullable)
                             for n, f in zip(names, self.fields)))
+
+    def select(self, indices) -> "Schema":
+        return Schema(tuple(self.fields[i] for i in indices))
+
+    def concat(self, other: "Schema") -> "Schema":
+        return Schema(self.fields + other.fields)

@@ -19,12 +19,13 @@ are not in this slice.
 
 from __future__ import annotations
 
+import datetime
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from auron_tpu_torch.columnar.batch import Batch, from_numpy
-from auron_tpu_torch.ir.schema import Schema
+from auron_tpu_torch.columnar.batch import Batch, empty_numpy, from_numpy
+from auron_tpu_torch.ir.schema import Schema, TypeId
 from auron_tpu_torch.ops.base import Operator, TaskContext
 
 
@@ -64,6 +65,21 @@ class FFIReaderExec(Operator):
                              device=ctx.device)
 
 
+_EPOCH_DAY = datetime.date(1970, 1, 1)
+_EPOCH = datetime.datetime(1970, 1, 1)
+
+
+def _row_value(v, dtype):
+    if dtype.id == TypeId.DATE32 and isinstance(v, datetime.date):
+        return (v - _EPOCH_DAY).days
+    if dtype.id == TypeId.TIMESTAMP_US and isinstance(v, datetime.datetime):
+        if v.tzinfo is not None:
+            v = v.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+        d = v - _EPOCH
+        return (d.days * 86_400 + d.seconds) * 1_000_000 + d.microseconds
+    return v
+
+
 def item_columns(item):
     """(arrays, validities) of an FFI item: a pair as it is, a
     RecordBatch through `arrow_to_numpy`."""
@@ -97,6 +113,31 @@ class SourceTable:
                             for v in validities])
                           for s in range(lo, hi, batch_rows)])
         return cls(parts, (list(arrays), list(validities)))
+
+    @classmethod
+    def from_rows(cls, rows: Sequence[dict], schema: Schema
+                  ) -> "SourceTable":
+        """One partition of a `LocalTableScanExec`'s rows (dicts by
+        column name, a missing or None value null), each column in its
+        device layout: a date as int32 days (`datetime.date` or an int),
+        a timestamp as int64 microseconds (`datetime.datetime`, naive as
+        UTC, or an int), a string or binary column as an object array."""
+        arrays, validities = [], []
+        for f in schema.fields:
+            vals = [r.get(f.name) for r in rows]
+            valid = np.array([v is not None for v in vals], dtype=bool)
+            if f.dtype.is_stringlike:
+                a = np.empty(len(vals), dtype=object)
+                a[:] = vals
+            else:
+                fill = False if f.dtype.id == TypeId.BOOL else 0
+                a = np.array([fill if v is None else _row_value(v, f.dtype)
+                              for v in vals],
+                             dtype=empty_numpy(f.dtype).dtype)
+            arrays.append(a)
+            validities.append(valid)
+        return cls([[(arrays, validities)]] if rows else [[]],
+                   (arrays, validities))
 
     def for_partition(self, pid: int) -> list:
         return self.parts[pid] if pid < len(self.parts) else []

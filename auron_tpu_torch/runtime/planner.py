@@ -83,6 +83,8 @@ class PhysicalPlanner:
         return ProjectExec(self.create_plan(n.child), n.exprs, n.names)
 
     def create_plan(self, node: P.PlanNode) -> Operator:
+        if node.kind in ("parquet_scan", "orc_scan"):
+            raise NotImplementedError(P.SCANS_NOT_PORTED)
         arm = self._arms.get(node.kind)
         if arm is None:
             raise NotImplementedError(

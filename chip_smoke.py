@@ -24,8 +24,8 @@ the sources in this checkout.  Phases, each fatal on failure:
 4. time the kernel and its plain version (CUDA events and the
    profiler's kernel durations) beside the launch floor (the profiler's
    duration of a one-element `add_`);
-5. profile one map task: wall time, device busy time and idle share,
-   the top kernels and host ops;
+5. profile the first quarter of one map task: wall time, device busy
+   time and idle share, the top kernels and host ops;
 6. hold the radix-histogram kernel bit-exact against its plain version
    on the card: n in {128, 256, 512, 1024, 128 x 131, 8192, 144000,
    2^24} x b_bits in {0, 1, 2, 6, 8} (clusters of 1, 2, 4 and 8 blocks),
@@ -56,11 +56,11 @@ the sources in this checkout.  Phases, each fatal on failure:
     count -> Limit 100); check the count against numpy exactly and that
     every map-side batch went through the radix-histogram kernel (b = 1,
     the single writer's ceil_log2(1)) and none through hash-pid; profile
-    one map task;
+    the first quarter of one map task;
 11. run q88c whole the same way: 8 map tasks (FFIReader -> Projection of
     three CASE band flags -> partial sums -> single-partition writer) and
     1 reduce task (final sums); check the three band counts exactly;
-    profile one map task;
+    profile the first quarter of one map task;
 12. run the three aggregate stages of q01's threshold subtree over the
     SF-10 store_returns rows (sampled from the store_sales rows as
     `it/datagen.py` samples them): 4 map tasks (scan -> partial Sum by
@@ -175,11 +175,28 @@ the sources in this checkout.  Phases, each fatal on failure:
     17, 21 and 22 (`from_stage_plans` over `join_query_plans`): each on
     the stage executor (`spmd` true), a cold execute and a warm one
     (which uploads nothing), each equal to its phase's serial result
-    and to numpy, neither kernel launched; print wall time, host syncs,
+    (the warm one to numpy too), neither kernel launched; print wall
+    time, host syncs,
     bytes uploaded and peak memory of each; profile q01's warm stage
     execute; run q01 once more with `auron.spmd.singleDevice.enable`
     off, through the session's serial path: equal to phase 17, with
-    phase 17's tasks and kernel launches.
+    phase 17's tasks and kernel launches;
+26. run q01, q13a and q65w from their foreign plans, built by the port's
+    `it/queries.py` over a catalog of the same tables (the IT schema's
+    names and types, one chunk a split): the port's convert provider
+    `ScanSourceProvider` claims every scan, and the script's foreign
+    engine (`CardEngine`) serves each as a SourceTable, one split a file
+    group; `AuronSession.execute` tags, converts and runs each on the
+    stage path, native but for the scans (the only foreign sections, as
+    the JAX package counts them, are the plan's scans, each served once,
+    and the engine refuses any other node), cold and warm (the warm
+    execute uploads nothing),
+    each equal to phase 25's result (the warm one to numpy too), neither
+    kernel launched; print the host time of tagging and conversion, the execute
+    times, host syncs and bytes uploaded; run q01 once more with
+    `auron.spmd.singleDevice.enable` off: equal to phase 17, both kernels
+    launched, and phase 25's serial launches where the task counts are
+    equal.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -557,11 +574,12 @@ def profile_task(label: str, fn, card: str, batches: int = 0) -> None:
 
 
 def profile_map_task(cols, valid, dev, card: str) -> None:
-    """Phase 5: where one group-by map task's time goes."""
+    """Phase 5: where one group-by map task's time goes, over its first
+    quarter (reading a whole task's trace took 20 s on an H100)."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
-    profile_task("phase 5: map task 0",
+    profile_task("phase 5: map task 0, its first quarter",
                  lambda: map_task(0, cols, valid, InProcessShuffleService(),
-                                  dev), card)
+                                  dev, n_maps=4 * N_MAPS), card)
 
 
 def check_result(outs, cols, valid, K, dev) -> int:
@@ -3654,7 +3672,7 @@ def session_query(name, tables, n_maps):
     return root, ctx, sources
 
 
-def same_result(what, got, exp) -> None:
+def same_result(what, got, exp, phase: int = 25) -> None:
     """The same rows in the same order: validity, keys, counts and
     strings exact, float columns to relative 1e-9 (another summation
     order)."""
@@ -3666,7 +3684,7 @@ def same_result(what, got, exp) -> None:
         elif ok:
             ok = list(gd[gv]) == list(d[v])
         if not ok:
-            raise AssertionError(f"phase 25: {what}: column {name} "
+            raise AssertionError(f"phase {phase}: {what}: column {name} "
                                  f"differs")
 
 
@@ -3684,12 +3702,13 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def run_stage_queries(queries, dev, K, card: str) -> dict:
+def run_stage_queries(queries, dev, K, card: str, results=None) -> dict:
     """Each of `queries`, {name: (tables, n_maps, serial out, numpy
     check)}, through the session twice, cold (the source cache emptied)
-    and warm: the stage path, the serial result, numpy's check, no
-    kernel launch, nothing uploaded when warm.  Returns the launches of
-    each query's two executes."""
+    and warm: the stage path, the serial result, numpy's check (on the
+    warm run), no kernel launch, nothing uploaded when warm.  Returns the launches of
+    each query's two executes; `results` gets each warm result's
+    columns."""
     from auron_tpu_torch.frontend.session import AuronSession
     from auron_tpu_torch.parallel.stage import clear_source_caches
     session = AuronSession()
@@ -3711,17 +3730,22 @@ def run_stage_queries(queries, dev, K, card: str) -> dict:
                                      f"serial path: {res.spmd_rejection}")
             same_result(f"{name} {run} against its serial result",
                         res.columns, serial)
-            checked = check(res.columns)
+            # numpy's check once, on the warm run: both equal the serial
+            # result, which its phase held to numpy
+            checked = f"{check(res.columns)} equal to numpy" \
+                if run == "warm" else "numpy's check on the warm run"
             m = res.metrics
             warm_bytes = m["bytes_uploaded"]
             print(f"phase 25: {name} {run} stage execute {secs:.4f} s, "
                   f"{m['host_syncs']} host syncs, {m['bytes_uploaded']} "
                   f"bytes uploaded ({m['source_cache_hits']} source cache "
                   f"hits), {m['gathered_rows']} rows gathered, "
-                  f"{res.num_rows} out ({checked} equal to numpy), peak "
+                  f"{res.num_rows} out ({checked}), peak "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
                   f"| {card}")
         launches[name] = dict(K.LAUNCHES)
+        if results is not None:
+            results[name] = res.columns
         if warm_bytes != 0 or any(launches[name].values()):
             raise AssertionError(f"phase 25: {name}: the warm execute "
                                  f"uploaded {warm_bytes} bytes; launches "
@@ -3771,6 +3795,191 @@ def profile_stage_query(name, tables, n_maps, dev, card: str) -> None:
     print(f"phase 25: {name} warm stage execute: {count_syncs(execute)} "
           f"synchronizing operations seen by torch's sync debug mode, "
           f"{counted} host syncs counted by the executor | {card}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: q01, q13a and q65w from their foreign plans
+# ---------------------------------------------------------------------------
+
+# the columns of each phase table, as the IT schema names and types them
+FOREIGN_TABLES = {
+    "q01": {"store_returns": (("sr_customer_sk", "i64"),
+                              ("sr_store_sk", "i64"),
+                              ("sr_return_amt", "f64")),
+            "customer": CUSTOMER},
+    "q13a": {"store_sales": Q13A_SALES, "store": STORE,
+             "date_dim": DATE_YEAR},
+    "q65w": {"store_sales": Q65W_SALES},
+}
+
+
+def foreign_catalog(name, tables, n_maps):
+    """The port's IT catalog over a phase's tables: each table's schema
+    its columns, its chunks `<table>/part-<k>`, one a split (a table of
+    one split, one chunk)."""
+    from auron_tpu_torch.it.datagen import Catalog, TableDef
+    return Catalog("card", {
+        t: TableDef(t, _schema(*FOREIGN_TABLES[name][t]),
+                    [f"{t}/part-{k:05d}" for k in range(n_maps.get(t, 1))])
+        for t in tables})
+
+
+def only_scans_went_foreign(what, res, plan, engine, scans_before):
+    """Phase 26's check that a query ran natively but for its scans: the
+    root converted, the only foreign sections (the JAX package's count,
+    `SessionResult.foreign_sections`) the plan's FileSourceScanExec
+    nodes, each a child-less source the engine served once in this
+    execute (`CardEngine` refuses any other node)."""
+    n_scans = []
+    plan.foreach(lambda n: n_scans.append(1)
+                 if n.op == "FileSourceScanExec" else None)
+    sources = list(res.ctx.sources.values())
+    served = engine.scans - scans_before
+    if type(res.converted).__name__ == "ForeignWrap" or \
+            any(s.node.children or s.node.node.op != "FileSourceScanExec"
+                for s in sources) or \
+            not res.foreign_sections == len(sources) == len(n_scans) == \
+            served:
+        raise AssertionError(
+            f"phase 26: {what}: root {type(res.converted).__name__}, "
+            f"{res.foreign_sections} foreign sections "
+            f"({[s.node.node.op for s in sources]}), {len(n_scans)} scans "
+            f"in the plan, {served} served")
+
+
+class CardEngine:
+    """The foreign engine of phase 26: it answers a scan from the
+    phase's host tables, one split a file group (each chunk a contiguous
+    split, as `SourceTable.from_columns` cuts it), and keeps each table
+    it made, so a repeat execute gets the same object (the stage
+    executor's source cache keys by identity).  Pushed filters only
+    prune: a `FilterExec` above the scan applies them.  Any other node
+    fails the run: these plans convert whole."""
+
+    def __init__(self, tables, catalog):
+        self.tables, self.catalog = tables, catalog
+        self.made = {}
+        self.scans = 0
+
+    def execute(self, node, child_tables):
+        from auron_tpu_torch.config import conf
+        from auron_tpu_torch.ops.scan.ipc import SourceTable
+        if node.op != "FileSourceScanExec":
+            raise AssertionError(f"phase 26: {node.op} went to the foreign "
+                                 f"engine")
+        self.scans += 1
+        groups = tuple(tuple(g) for g in node.attrs["file_groups"])
+        table = groups[0][0].split("/")[0]
+        names = tuple(node.output.names())
+        key = (table, names, groups)
+        if key not in self.made:
+            chunks = self.catalog.tables[table].chunks
+            if [c for g in groups for c in g] != chunks or \
+                    any(len(g) != 1 for g in groups):
+                raise AssertionError(f"phase 26: {table}'s groups {groups}")
+            cols, valid = self.tables[table]
+            idx = [self.catalog.tables[table].schema.index_of(n)
+                   for n in names]
+            self.made[key] = SourceTable.from_columns(
+                [cols[i] for i in idx], [valid[i] for i in idx],
+                len(groups), int(conf.get("auron.batch.size")))
+        return self.made[key]
+
+
+def run_foreign_queries(queries, stage_results, dev, K, card: str) -> dict:
+    """Phase 26: each of `queries` ({name: (tables, n_maps, serial out,
+    numpy check)}) built as its foreign plan by the port's
+    `it/queries.py` and run through `AuronSession.execute` twice, cold
+    (the source cache emptied) and warm: the stage path, native but for
+    the scans (`only_scans_went_foreign`), phase 25's result, numpy's check, no kernel launch, nothing uploaded
+    when warm (numpy's check on the warm run).  Returns the launches of
+    each query's two executes."""
+    from auron_tpu_torch.frontend import converters as C
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.it import queries as Q
+    from auron_tpu_torch.parallel.stage import clear_source_caches
+    provider = C.ScanSourceProvider()
+    C.register_provider(provider)
+    launches = {}
+    try:
+        for name, (tables, n_maps, _, check) in queries.items():
+            catalog = foreign_catalog(name, tables, n_maps)
+            session = AuronSession(foreign_engine=CardEngine(tables,
+                                                             catalog))
+            clear_source_caches()
+            K.reset_launches()
+            warm_bytes = None
+            for run in ("cold", "warm"):
+                plan = Q.build(name, catalog)
+                scans_before = session.foreign_engine.scans
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.execute(plan, dev)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if not res.spmd:
+                    raise AssertionError(
+                        f"phase 26: {name} {run}: off the stage path "
+                        f"({res.spmd_rejection})")
+                only_scans_went_foreign(f"{name} {run}", res, plan,
+                                        session.foreign_engine,
+                                        scans_before)
+                same_result(f"{name} {run} against phase 25", res.columns,
+                            stage_results[name], phase=26)
+                checked = f"{check(res.columns)} equal to numpy" \
+                    if run == "warm" else "numpy's check on the warm run"
+                m = res.metrics
+                warm_bytes = m["bytes_uploaded"]
+                print(f"phase 26: {name} {run} execute {secs:.4f} s, tag "
+                      f"and convert {res.convert_s * 1e3:.3f} ms, "
+                      f"{m['host_syncs']} host syncs, {m['bytes_uploaded']} "
+                      f"bytes uploaded ({m['source_cache_hits']} source "
+                      f"cache hits), {session.foreign_engine.scans} scans "
+                      f"served, {res.num_rows} rows out ({checked}) | {card}")
+            launches[name] = dict(K.LAUNCHES)
+            if warm_bytes != 0 or any(launches[name].values()):
+                raise AssertionError(f"phase 26: {name}: the warm execute "
+                                     f"uploaded {warm_bytes} bytes; "
+                                     f"launches {launches[name]}")
+    finally:
+        C.unregister_provider(provider)
+    return launches
+
+
+def run_foreign_serial(name, tables, n_maps, serial, dev, K, card: str):
+    """Phase 26: the foreign plan once more with the stage executor off,
+    on the session's serial path.  Returns (launches, serial tasks)."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend import converters as C
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.it import queries as Q
+    catalog = foreign_catalog(name, tables, n_maps)
+    provider = C.ScanSourceProvider()
+    C.register_provider(provider)
+    K.reset_launches()
+    engine = CardEngine(tables, catalog)
+    plan = Q.build(name, catalog)
+    try:
+        with conf.scoped({"auron.spmd.singleDevice.enable": False}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = AuronSession(foreign_engine=engine).execute(plan, dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        C.unregister_provider(provider)
+    if res.spmd:
+        raise AssertionError(f"phase 26: serial {name} took the stage path")
+    only_scans_went_foreign(f"serial {name}", res, plan, engine, 0)
+    same_result(f"{name} serial execute against its phase", res.columns,
+                serial, phase=26)
+    launches = dict(K.LAUNCHES)
+    tasks = res.metrics["serial_tasks"]
+    print(f"phase 26: {name} from its foreign plan on the serial path "
+          f"{secs:.3f} s, {tasks} tasks, "
+          f"{launches['hash_partition_ids_i64']} hash-pid, "
+          f"{launches['radix_bucket_hist']} radix-hist launches | {card}")
+    return launches, tasks
 
 
 def check_path_shapes(K, dev, rng, shapes) -> dict:
@@ -3962,10 +4171,12 @@ def main() -> int:
     print(f"phase 10: q96 count {check_q96(out, cols, valid)} equal to "
           f"numpy | {card}")
     q96_map = store_sales_plans("q96")[0]
-    profile_task("phase 10: q96 map task 0",
+    # a quarter of the task, as for q88c and the group-by map: reading
+    # a whole task's trace took 20-30 s on an H100
+    profile_task("phase 10: q96 map task 0, its first quarter",
                  lambda: map_task(0, q96_cols, q96_valid,
                                   InProcessShuffleService(), dev, q96_map,
-                                  "q96"), card)
+                                  "q96", n_maps=4 * N_MAPS), card)
     del q96_cols, q96_valid, date_sk, date_valid
 
     q88_cols, q88_valid = [cols[1], cols[2]], [valid[1], valid[2]]
@@ -3975,10 +4186,10 @@ def main() -> int:
     print(f"phase 11: q88c bands {check_q88c(out, cols, valid)} equal to "
           f"numpy | {card}")
     q88_map = store_sales_plans("q88c")[0]
-    profile_task("phase 11: q88c map task 0",
+    profile_task("phase 11: q88c map task 0, its first quarter",
                  lambda: map_task(0, q88_cols, q88_valid,
                                   InProcessShuffleService(), dev, q88_map,
-                                  "q88c"), card)
+                                  "q88c", n_maps=4 * N_MAPS), card)
 
     t = time.perf_counter()
     rcols, rvalid, ridx = make_store_returns(cols, valid, args.seed)
@@ -4241,7 +4452,9 @@ def main() -> int:
           f"{time.perf_counter() - new_phases:.1f} s | {card}")
 
     new_phases = time.perf_counter()
-    stage_launches = run_stage_queries(stage_inputs, dev, K, card)
+    stage_results = {}
+    stage_launches = run_stage_queries(stage_inputs, dev, K, card,
+                                       stage_results)
     profile_stage_query("q01", q01_tables, q01_maps, dev, card)
     serial_launches, serial_tasks = run_session_serial(
         "q01", q01_tables, q01_maps, stage_inputs["q01"][2], dev, K, card)
@@ -4254,7 +4467,25 @@ def main() -> int:
           f"serial results and numpy with no kernel launch, the serial "
           f"session's q01 phase 17's with its {serial_tasks} tasks' "
           f"launches: {time.perf_counter() - new_phases:.1f} s | {card}")
-    del stage_inputs, q01_tables, jcols
+
+    new_phases = time.perf_counter()
+    foreign_launches = run_foreign_queries(stage_inputs, stage_results, dev,
+                                           K, card)
+    fserial_launches, fserial_tasks = run_foreign_serial(
+        "q01", q01_tables, q01_maps, stage_inputs["q01"][2], dev, K, card)
+    if fserial_tasks == serial_tasks and fserial_launches != serial_launches:
+        raise AssertionError(
+            f"phase 26: q01's serial execute ran phase 25's {serial_tasks} "
+            f"tasks with {fserial_launches}, phase 25 {serial_launches}")
+    if not all(fserial_launches.values()):
+        raise AssertionError(f"phase 26: q01's serial execute launched "
+                             f"{fserial_launches}")
+    print(f"phase 26: q01, q13a and q65w from their foreign plans through "
+          f"AuronSession.execute equal phase 25 and numpy, native but "
+          f"for their scans on the stage path with no kernel launch; the serial q01 phase "
+          f"17's in {fserial_tasks} tasks (phase 25: {serial_tasks}): "
+          f"{time.perf_counter() - new_phases:.1f} s | {card}")
+    del stage_inputs, q01_tables, jcols, stage_results
 
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
@@ -4283,7 +4514,10 @@ def main() -> int:
             **{q: la["hash_partition_ids_i64"] for q, la in slice9_launches.items()},
             **{f"{q}_stage": la["hash_partition_ids_i64"]
                for q, la in stage_launches.items()},
-            "q01_session_serial": serial_launches["hash_partition_ids_i64"]},
+            "q01_session_serial": serial_launches["hash_partition_ids_i64"],
+            **{f"{q}_foreign": la["hash_partition_ids_i64"]
+               for q, la in foreign_launches.items()},
+            "q01_foreign_serial": fserial_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -4307,7 +4541,10 @@ def main() -> int:
             **{q: la["radix_bucket_hist"] for q, la in slice9_launches.items()},
             **{f"{q}_stage": la["radix_bucket_hist"]
                for q, la in stage_launches.items()},
-            "q01_session_serial": serial_launches["radix_bucket_hist"]},
+            "q01_session_serial": serial_launches["radix_bucket_hist"],
+            **{f"{q}_foreign": la["radix_bucket_hist"]
+               for q, la in foreign_launches.items()},
+            "q01_foreign_serial": fserial_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -85,9 +85,19 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_import_rules_cover_the_intake_modules():
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"auron_tpu_torch/frontend/foreign.py",
+            "auron_tpu_torch/frontend/expr_convert.py",
+            "auron_tpu_torch/frontend/strategy.py",
+            "auron_tpu_torch/it/__init__.py",
+            "auron_tpu_torch/it/datagen.py",
+            "auron_tpu_torch/it/queries.py"} <= rel
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a card and without device='cpu', execute_task_bytes, the
-    session's execute_converted and the stage executor's
+    session's execute and execute_converted and the stage executor's
     execute_plan_stage raise before they read any input."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pulled = []
@@ -145,6 +155,40 @@ def _session_and_stage_entries(monkeypatch):
     assert not pulled
     res = AuronSession().execute_converted(root, ctx, src, device="cpu")
     assert pulled and res.spmd and res.num_rows == 5
+    _foreign_plan_entry(monkeypatch)
+
+
+def _foreign_plan_entry(monkeypatch):
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend.foreign import ForeignNode, fcol
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.ir.schema import DataType, Field, Schema
+    from auron_tpu_torch.ops.scan.ipc import SourceTable
+
+    class Engine:
+        def execute(self, node, child_tables):
+            pulled.append(node.op)
+            return child_tables[0] if child_tables else \
+                SourceTable.from_rows(node.attrs["rows"], node.output)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pulled = []
+    schema = Schema.of(Field("k", DataType.int64()))
+    scan = ForeignNode("LocalTableScanExec", output=schema,
+                       attrs={"rows": [{"k": 1}, {"k": 2}]})
+    plan = ForeignNode("ProjectExec", children=(scan,), output=schema,
+                       attrs={"project_list": [fcol("k", DataType.int64())]})
+    session = AuronSession(foreign_engine=Engine())
+    for enabled in (True, False):
+        with conf.scoped({"auron.enable": enabled}):
+            for dev in (None, "cuda"):
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    session.execute(plan, device=dev)
+    assert not pulled
+    assert session.execute(plan, device="cpu").num_rows == 2
+    with conf.scoped({"auron.enable": False}):
+        assert session.execute(plan, device="cpu").num_rows == 2
+    assert pulled == ["LocalTableScanExec", "ProjectExec"]
 
 
 def test_kernel_wrapper_never_falls_back(monkeypatch):

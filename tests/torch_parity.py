@@ -238,3 +238,32 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+# -- a convert provider that claims the parquet scans --------------------------
+
+def scan_provider(converters):
+    """The port's `ScanSourceProvider` for either package (`converters`
+    is its frontend.converters module): it claims every
+    FileSourceScanExec as an FFIReader of the scan's output, one
+    partition a file group, over a ForeignSource that wraps the scan
+    for the session's foreign engine to read.  The JAX package has no
+    such provider, so it gets the same one built over its own classes."""
+    if hasattr(converters, "ScanSourceProvider"):
+        return converters.ScanSourceProvider()
+    from importlib import import_module
+    plan = import_module(converters.__name__.replace("frontend.converters",
+                                                     "ir.plan"))
+
+    class ScanProvider(converters.ConvertProvider):
+        def is_supported(self, node):
+            return node.op == "FileSourceScanExec"
+
+        def convert(self, node, children, ctx):
+            rid = ctx.fresh("scan")
+            ctx.sources[rid] = converters.ForeignSource(
+                rid=rid, node=converters.ForeignWrap(node=node))
+            return ctx.set_parts(
+                plan.FFIReader(schema=node.output, resource_id=rid),
+                len(node.attrs["file_groups"]))
+    return ScanProvider()
