@@ -184,19 +184,33 @@ the sources in this checkout.  Phases, each fatal on failure:
 26. run q01, q13a and q65w from their foreign plans, built by the port's
     `it/queries.py` over a catalog of the same tables (the IT schema's
     names and types, one chunk a split): the port's convert provider
-    `ScanSourceProvider` claims every scan, and the script's foreign
-    engine (`CardEngine`) serves each as a SourceTable, one split a file
-    group; `AuronSession.execute` tags, converts and runs each on the
-    stage path, native but for the scans (the only foreign sections, as
-    the JAX package counts them, are the plan's scans, each served once,
-    and the engine refuses any other node), cold and warm (the warm
-    execute uploads nothing),
-    each equal to phase 25's result (the warm one to numpy too), neither
-    kernel launched; print the host time of tagging and conversion, the execute
-    times, host syncs and bytes uploaded; run q01 once more with
-    `auron.spmd.singleDevice.enable` off: equal to phase 17, both kernels
-    launched, and phase 25's serial launches where the task counts are
-    equal.
+    `ScanSourceProvider` claims every scan, and the port's foreign engine
+    over host tables (`it/datagen.py::TableEngine`) serves each as a
+    SourceTable, one split a file group; `AuronSession.execute` tags,
+    converts and runs each on the stage path, native but for the scans (the
+    only foreign sections, as the JAX package counts them, are the plan's
+    scans, each served once, and the engine refuses any other node), cold
+    and warm (the warm execute uploads nothing), each equal to phase 25's
+    result (the warm one to numpy too), neither kernel launched; print the
+    host time of tagging and conversion, the execute times, host syncs and
+    bytes uploaded; run q01 once more with `auron.spmd.singleDevice.enable`
+    off: equal to phase 17, both kernels launched, and phase 25's serial
+    launches where the task counts are equal;
+27. generate TPC-DS at SF 1, seed 7 with the port's numpy generator
+    (`it/datagen.py::generate`, the JAX package's tables bit for bit)
+    and print the time it took; run all 103 IT queries from their
+    foreign plans through the port's `it/runner.py::QueryRunner` on the
+    card (`AuronSession.execute`, `TableEngine` serving the scans), cold
+    (the source cache emptied) and warm, each against the committed
+    expected results of the JAX package's oracle
+    (`auron_tpu_torch/it/expected_sf1_seed7.json`); print a line a query
+    (the path, or the stage executor's reason for the serial path; tag
+    and convert ms; cold and warm seconds; host syncs and bytes
+    uploaded, cold/warm; peak device memory, reset a query; rows; the
+    hash-pid/radix-hist launches), fail after the sweep if any query
+    raised or differed, print the least, median and most of each of
+    those readings, and profile the warm execute of the query with the
+    largest warm time.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -3829,7 +3843,7 @@ def only_scans_went_foreign(what, res, plan, engine, scans_before):
     root converted, the only foreign sections (the JAX package's count,
     `SessionResult.foreign_sections`) the plan's FileSourceScanExec
     nodes, each a child-less source the engine served once in this
-    execute (`CardEngine` refuses any other node)."""
+    execute (`TableEngine` refuses any other node)."""
     n_scans = []
     plan.foreach(lambda n: n_scans.append(1)
                  if n.op == "FileSourceScanExec" else None)
@@ -3847,45 +3861,6 @@ def only_scans_went_foreign(what, res, plan, engine, scans_before):
             f"in the plan, {served} served")
 
 
-class CardEngine:
-    """The foreign engine of phase 26: it answers a scan from the
-    phase's host tables, one split a file group (each chunk a contiguous
-    split, as `SourceTable.from_columns` cuts it), and keeps each table
-    it made, so a repeat execute gets the same object (the stage
-    executor's source cache keys by identity).  Pushed filters only
-    prune: a `FilterExec` above the scan applies them.  Any other node
-    fails the run: these plans convert whole."""
-
-    def __init__(self, tables, catalog):
-        self.tables, self.catalog = tables, catalog
-        self.made = {}
-        self.scans = 0
-
-    def execute(self, node, child_tables):
-        from auron_tpu_torch.config import conf
-        from auron_tpu_torch.ops.scan.ipc import SourceTable
-        if node.op != "FileSourceScanExec":
-            raise AssertionError(f"phase 26: {node.op} went to the foreign "
-                                 f"engine")
-        self.scans += 1
-        groups = tuple(tuple(g) for g in node.attrs["file_groups"])
-        table = groups[0][0].split("/")[0]
-        names = tuple(node.output.names())
-        key = (table, names, groups)
-        if key not in self.made:
-            chunks = self.catalog.tables[table].chunks
-            if [c for g in groups for c in g] != chunks or \
-                    any(len(g) != 1 for g in groups):
-                raise AssertionError(f"phase 26: {table}'s groups {groups}")
-            cols, valid = self.tables[table]
-            idx = [self.catalog.tables[table].schema.index_of(n)
-                   for n in names]
-            self.made[key] = SourceTable.from_columns(
-                [cols[i] for i in idx], [valid[i] for i in idx],
-                len(groups), int(conf.get("auron.batch.size")))
-        return self.made[key]
-
-
 def run_foreign_queries(queries, stage_results, dev, K, card: str) -> dict:
     """Phase 26: each of `queries` ({name: (tables, n_maps, serial out,
     numpy check)}) built as its foreign plan by the port's
@@ -3897,6 +3872,7 @@ def run_foreign_queries(queries, stage_results, dev, K, card: str) -> dict:
     from auron_tpu_torch.frontend import converters as C
     from auron_tpu_torch.frontend.session import AuronSession
     from auron_tpu_torch.it import queries as Q
+    from auron_tpu_torch.it.datagen import TableEngine
     from auron_tpu_torch.parallel.stage import clear_source_caches
     provider = C.ScanSourceProvider()
     C.register_provider(provider)
@@ -3904,8 +3880,8 @@ def run_foreign_queries(queries, stage_results, dev, K, card: str) -> dict:
     try:
         for name, (tables, n_maps, _, check) in queries.items():
             catalog = foreign_catalog(name, tables, n_maps)
-            session = AuronSession(foreign_engine=CardEngine(tables,
-                                                             catalog))
+            session = AuronSession(foreign_engine=TableEngine(catalog,
+                                                              tables))
             clear_source_caches()
             K.reset_launches()
             warm_bytes = None
@@ -3953,11 +3929,12 @@ def run_foreign_serial(name, tables, n_maps, serial, dev, K, card: str):
     from auron_tpu_torch.frontend import converters as C
     from auron_tpu_torch.frontend.session import AuronSession
     from auron_tpu_torch.it import queries as Q
+    from auron_tpu_torch.it.datagen import TableEngine
     catalog = foreign_catalog(name, tables, n_maps)
     provider = C.ScanSourceProvider()
     C.register_provider(provider)
     K.reset_launches()
-    engine = CardEngine(tables, catalog)
+    engine = TableEngine(catalog, tables)
     plan = Q.build(name, catalog)
     try:
         with conf.scoped({"auron.spmd.singleDevice.enable": False}):
@@ -3980,6 +3957,123 @@ def run_foreign_serial(name, tables, n_maps, serial, dev, K, card: str):
           f"{launches['hash_partition_ids_i64']} hash-pid, "
           f"{launches['radix_bucket_hist']} radix-hist launches | {card}")
     return launches, tasks
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the whole TPC-DS corpus from its foreign plans at SF 1
+# ---------------------------------------------------------------------------
+
+CORPUS_SF, CORPUS_SEED, CORPUS_CHUNKS = 1.0, 7, 4
+
+
+def corpus_line(r) -> str:
+    """One query's line of phase 27."""
+    path = "stage" if r.spmd else f"serial ({r.spmd_rejection})"
+    if r.native_warm_s is None:     # it raised
+        return f"phase 27: {r.name} FAIL: {r.error}"
+    syncs = "-" if r.host_syncs is None else "/".join(map(str, r.host_syncs))
+    up = "-" if r.bytes_uploaded is None else \
+        "/".join(map(str, r.bytes_uploaded))
+    peak = "-" if r.peak_bytes is None else f"{r.peak_bytes / 2**20:.1f}"
+    warm = "/".join(f"{w:.4f}" for w in r.warm_s)
+    gcs = "/".join(f"{g:.4f}" for g in r.gc_s)
+    return (f"phase 27: {r.name} {'ok' if r.ok else 'FAIL'} {path}, "
+            f"convert {r.convert_s * 1e3:.3f} ms, cold {r.native_s:.4f} s, "
+            f"warm {r.native_warm_s:.4f} s (median of {warm}), collector "
+            f"{gcs} s, syncs {syncs}, uploaded {up} "
+            f"B, peak {peak} MiB, {r.rows} rows, "
+            f"launches {r.launches['hash_partition_ids_i64']}/"
+            f"{r.launches['radix_bucket_hist']}")
+
+
+def run_corpus(dev, K, card: str):
+    """Phase 27: generate SF 1, seed 7 with the port's numpy generator,
+    run all 103 IT queries from their foreign plans through the port's
+    `QueryRunner` on the card, cold and warm, against the committed
+    expected results of the JAX package's oracle, one line a query (the
+    warm time the median of three executes, and the seconds the Python
+    collector ran in each timed execute); fail after the sweep if any
+    query raised or differed.  Returns the runner and the sweep's kernel
+    launches."""
+    from auron_tpu_torch.it.datagen import generate
+    from auron_tpu_torch.it.runner import QueryRunner, load_expected
+    t = time.perf_counter()
+    cat, tables = generate("tpcds-sf1-seed7", sf=CORPUS_SF,
+                           seed=CORPUS_SEED, fact_chunks=CORPUS_CHUNKS)
+    rows = sum(len(a[0]) for a, _ in tables.values())
+    print(f"phase 27: SF {CORPUS_SF:g}, seed {CORPUS_SEED} generated by "
+          f"the port's numpy generator: {rows} rows in {len(tables)} "
+          f"tables in {time.perf_counter() - t:.2f} s (store_sales "
+          f"{len(tables['store_sales'][0][0])}, inventory "
+          f"{len(tables['inventory'][0][0])} rows)")
+    _, expected = load_expected(CORPUS_SF, CORPUS_SEED, CORPUS_CHUNKS)
+    runner = QueryRunner(cat, tables, expected, dev)
+    K.reset_launches()
+    t = time.perf_counter()
+    runner.run_all(on_result=lambda r: print(corpus_line(r), flush=True))
+    sweep_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    failed = [r for r in runner.results if not r.ok]
+    for r in failed:
+        print(f"phase 27: {r.name}: {r.error}")
+        if r.trace:
+            print(r.trace)
+    if failed:
+        raise AssertionError(f"phase 27: {len(failed)} of "
+                             f"{len(runner.results)} queries failed: "
+                             f"{','.join(r.name for r in failed)}")
+    res = runner.results
+    serial = [r.name for r in res if not r.spmd]
+    print(f"phase 27: {len(res)} queries equal the oracle's results cold "
+          f"and warm in {sweep_s:.1f} s ({len(res) - len(serial)} on the "
+          f"stage path, serial: {','.join(serial) or 'none'}); launches "
+          f"{launches} | {card}")
+    for what, key, fmt in (
+            ("cold", lambda r: r.native_s, "{:.4f} s"),
+            ("warm (median of 3)", lambda r: r.native_warm_s, "{:.4f} s"),
+            ("warm, the slowest of 3", lambda r: max(r.warm_s), "{:.4f} s"),
+            ("collector in the slowest warm execute",
+             lambda r: r.gc_s[1 + r.warm_s.index(max(r.warm_s))],
+             "{:.4f} s"),
+            ("collector, all executes", lambda r: sum(r.gc_s), "{:.4f} s"),
+            ("tag and convert", lambda r: r.convert_s * 1e3, "{:.3f} ms"),
+            ("host syncs, cold", lambda r: (r.host_syncs or (0,))[0], "{:d}"),
+            ("uploaded cold", lambda r: (r.bytes_uploaded or (0,))[0],
+             "{:d} B"),
+            ("peak", lambda r: (r.peak_bytes or 0) / 2**20, "{:.1f} MiB")):
+        ordered = sorted(res, key=key)
+        least, most = ordered[0], ordered[-1]
+        print(f"phase 27: {what}: least {fmt.format(key(least))} "
+              f"({least.name}), median "
+              f"{fmt.format(key(ordered[len(res) // 2]))}, most "
+              f"{fmt.format(key(most))} ({most.name}), "
+              f"{fmt.format(sum(map(key, res)))} in all")
+    slow = max(res, key=lambda r: max(r.warm_s))
+    k = slow.warm_s.index(max(slow.warm_s))
+    print(f"phase 27: the slowest warm execute: {slow.name}'s "
+          f"{max(slow.warm_s):.4f} s (its median {slow.native_warm_s:.4f} "
+          f"s), the collector ran {slow.gc_s[1 + k]:.4f} s of it | {card}")
+    return runner, launches
+
+
+def profile_corpus_query(runner, dev, card: str) -> None:
+    """Phase 27: where the warm execute of the query with the largest
+    median warm time goes (profile_task)."""
+    from auron_tpu_torch.frontend import converters as C
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.it import queries as Q
+    r = max(runner.results, key=lambda r: r.native_warm_s)
+    plan = Q.build(r.name, runner.catalog)
+    session = AuronSession(foreign_engine=runner.engine)
+    provider = C.ScanSourceProvider()
+    C.register_provider(provider)
+    try:
+        session.execute(plan, dev)
+        profile_task(f"phase 27: {r.name} warm execute (the largest median "
+                     f"warm time, {r.native_warm_s:.4f} s)",
+                     lambda: session.execute(plan, dev), card)
+    finally:
+        C.unregister_provider(provider)
 
 
 def check_path_shapes(K, dev, rng, shapes) -> dict:
@@ -4487,6 +4581,12 @@ def main() -> int:
           f"{time.perf_counter() - new_phases:.1f} s | {card}")
     del stage_inputs, q01_tables, jcols, stage_results
 
+    new_phases = time.perf_counter()
+    runner, corpus_launches = run_corpus(dev, K, card)
+    profile_corpus_query(runner, dev, card)
+    del runner
+    print(f"phase 27: {time.perf_counter() - new_phases:.1f} s | {card}")
+
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
         max(hist_err, errs["hist"])
@@ -4517,7 +4617,8 @@ def main() -> int:
             "q01_session_serial": serial_launches["hash_partition_ids_i64"],
             **{f"{q}_foreign": la["hash_partition_ids_i64"]
                for q, la in foreign_launches.items()},
-            "q01_foreign_serial": fserial_launches["hash_partition_ids_i64"]},
+            "q01_foreign_serial": fserial_launches["hash_partition_ids_i64"],
+            "corpus": corpus_launches["hash_partition_ids_i64"]},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -4544,7 +4645,8 @@ def main() -> int:
             "q01_session_serial": serial_launches["radix_bucket_hist"],
             **{f"{q}_foreign": la["radix_bucket_hist"]
                for q, la in foreign_launches.items()},
-            "q01_foreign_serial": fserial_launches["radix_bucket_hist"]},
+            "q01_foreign_serial": fserial_launches["radix_bucket_hist"],
+            "corpus": corpus_launches["radix_bucket_hist"]},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ query builders (`auron_tpu_torch/it/`) against the JAX package's.
   `it/datagen.py::generate` tables (SF 0.01, seed 7), reads back through
   the port's `ForeignNode.from_json` and writes the same JSON, byte for
   byte; a plan the port writes reads back in the JAX package too.
-- The port's q01, q13a and q65w builders over a port `Catalog` of the
-  same table definitions give the JAX package's JSON.
+- Every builder of the port (all 103, in the reference's order) over a
+  port `Catalog` of the same table definitions gives the JAX package's
+  JSON.
 - Type strings: every type the JAX package writes parses to the port's
   `DataType` of that type id and back; an unknown one raises naming it.
 """
@@ -58,7 +59,10 @@ def test_query_builder_is_the_references(name, catalog):
 
 
 def test_builders_are_the_three_card_queries():
-    assert pqueries.names() == ["q01", "q65w", "q13a"]
+    # the port has every builder now, in the reference's order; the
+    # three queries phase 26 runs on the card are among them
+    assert pqueries.names() == queries.names()
+    assert {"q01", "q65w", "q13a"} <= set(pqueries.names())
 
 
 def test_scan_parts_cut_the_groups(catalog):

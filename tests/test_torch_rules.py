@@ -1,5 +1,6 @@
 """Rules of the port: auron_tpu_torch and chip_smoke.py import nothing of
-JAX or the JAX package, pyarrow and zstandard only inside functions; the
+JAX or the JAX package, pyarrow and zstandard only inside functions, and
+the TPC-DS harness (auron_tpu_torch/it/) no pyarrow at all; the
 entry points run on the card unless asked for the CPU; the kernel
 wrappers launch or raise on a CUDA tensor and never fall back."""
 
@@ -93,6 +94,25 @@ def test_import_rules_cover_the_intake_modules():
             "auron_tpu_torch/it/__init__.py",
             "auron_tpu_torch/it/datagen.py",
             "auron_tpu_torch/it/queries.py"} <= rel
+
+
+IT_FILES = sorted((ROOT / "auron_tpu_torch" / "it").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", IT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_harness_file_never_imports_pyarrow(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, _ in _imports(tree):
+        assert not _is(name, "pyarrow"), f"{path.name} imports {name}"
+
+
+def test_import_rules_cover_the_harness():
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    it = {str(p.relative_to(ROOT)) for p in IT_FILES}
+    want = {f"auron_tpu_torch/it/{m}.py" for m in (
+        "__init__", "__main__", "datagen", "queries", "compare", "runner")}
+    assert want <= rel and want <= it
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
