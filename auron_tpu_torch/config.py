@@ -133,10 +133,11 @@ conf.define(
 conf.define(
     "auron.smj.window.max.rows", 1 << 20,
     "Cap on the build rows one streaming-SMJ window may materialize.  A "
-    "window past it that holds a single key escapes, in the JAX package, "
-    "to a giant-group join that spills to storage; the port has no spill "
-    "yet and raises there.  Windows of several keys keep the normal "
-    "path.  0 disables the cap.")
+    "window past it that holds a single key escapes to a giant-group "
+    "join: the group's build rows spill in chunks and every build chunk "
+    "meets the probe side's rows of that key, so resident memory stays "
+    "about one chunk and one batch.  Windows of several keys keep the "
+    "normal path.  0 disables the cap.")
 conf.define(
     "auron.kernel.join.probe.strategy", "auto",
     "Hash-join probe: 'searchsorted' = the double searchsorted over the "
@@ -191,3 +192,52 @@ conf.define(
 conf.define(
     "auron.datetime.extract.enable", True,
     "Convert hour(), minute() and second().")
+
+conf.define(
+    "auron.memory.fraction", 0.6,
+    "Fraction of the device's memory the memory manager hands to "
+    "consumers (torch.cuda.mem_get_info's total on the card; 4 GiB "
+    "where there is no card).")
+conf.define(
+    "auron.memory.budget.bytes", 0,
+    "Absolute memory budget override in bytes; 0 = derive from device "
+    "memory and auron.memory.fraction.")
+conf.define(
+    "auron.memory.watermark.fractions", "0.5,0.8,0.95",
+    "Comma-separated budget fractions the memory manager watches: the "
+    "first time pool usage climbs past budget*fraction a watermark "
+    "crossing is recorded (MemManager.stats).  Crossings fire once per "
+    "fraction per manager lifetime (reset_manager re-arms).  Empty "
+    "disables watermark telemetry.")
+conf.define(
+    "auron.memory.spill.min.trigger.bytes", 16 << 20,
+    "Consumers below this size are never forced to spill.")
+conf.define(
+    "auron.memory.spill.victim.strategy", "rate",
+    "How the memory manager ranks spill victims: 'rate' prefers the "
+    "consumer class with the best observed freed-bytes-per-wall-second "
+    "(a class with no history ranks first, largest first); 'largest' "
+    "the pure largest-consumer policy.  The JAX package's 'query' "
+    "strategy needs the per-query ledger, which is not in the port yet "
+    "(ROADMAP Queue 1 items 16 and 18): setting it raises.")
+conf.define(
+    "auron.memory.query.budget.bytes", 0,
+    "Per-query memory budget of the JAX package's per-query ledger, "
+    "which is not in the port yet (ROADMAP Queue 1 items 16 and 18): "
+    "a non-zero value raises.")
+conf.define(
+    "auron.spill.host.memory.first", True,
+    "Spill to host memory (pinned where there is a card) rather than to "
+    "files (memmgr/spill.py).")
+conf.define(
+    "auron.spill.dir", "",
+    "Directory for spill files ('' = the system's temporary directory).")
+conf.define(
+    "auron.spill.compression.codec", "none",
+    "Codec of the file spill tier: none | zlib.  The JAX package "
+    "defaults to zstd; 'zstd' here needs the zstandard module and "
+    "raises, naming it, where that is missing.")
+conf.define(
+    "auron.partial.agg.skipping.skip.spill", True,
+    "Allow partial-agg skipping to engage even when spills already "
+    "exist; when false, a spilled agg never switches to passthrough.")

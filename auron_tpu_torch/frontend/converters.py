@@ -22,9 +22,6 @@ refuses to run (a convert provider may claim the scan instead:
 `ScanSourceProvider` hands every file scan to the session's foreign
 engine), and the adjacency branch of `auron.adaptive.fuse.adjacency.enable`
 `NotImplementedError`.
-
-`from_stage_plans` builds a converted query from its stage plans
-directly, in the form `chip_smoke.py`'s hand-written plans hold them.
 """
 
 from __future__ import annotations
@@ -33,7 +30,7 @@ import dataclasses
 import itertools
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.frontend import expr_convert as EC
@@ -78,7 +75,7 @@ class ForeignSource:
     `LocalTableScanExec`'s rows, a scan a convert provider claimed, or a
     section the strategy left foreign), which the session runs through
     its foreign engine; None when the caller passes the table with the
-    query (`from_stage_plans`, `AuronSession.execute_converted`)."""
+    query (`AuronSession.execute_converted`)."""
     rid: str
     node: Optional[ForeignWrap] = None
 
@@ -119,56 +116,6 @@ def stage_nodes(plan: P.PlanNode) -> Iterator[P.PlanNode]:
         kids = [c for c in n.children_nodes()
                 if isinstance(c, (P.PlanNode, P.UnionInput))]
         stack.extend(reversed(kids))
-
-
-def _readers(plan: P.PlanNode, kind: str) -> list:
-    return list(dict.fromkeys(n.resource_id for n in stage_nodes(plan)
-                              if n.kind == kind))
-
-
-def _stage_parts(plan: P.PlanNode, exchanges: Mapping[str, ShuffleJob],
-                 parts: Mapping[str, int]) -> int:
-    """A stage's task count: a union's partitions, else the split count
-    of the first table it scans, else the partition count of the first
-    exchange it reads, else 1."""
-    for n in stage_nodes(plan):
-        if n.kind == "union":
-            return n.num_partitions
-    scans = _readers(plan, "ffi_reader")
-    if scans:
-        return int(parts.get(scans[0], 1))
-    for rid in _readers(plan, "ipc_reader"):
-        if rid in exchanges:
-            return exchanges[rid].partitioning.num_partitions
-    return 1
-
-
-def from_stage_plans(plans: Mapping[str, P.PlanNode],
-                     parts: Optional[Mapping[str, int]] = None
-                     ) -> Tuple[P.PlanNode, ConvertContext]:
-    """(root, ConvertContext) of a query given as its stage plans:
-    {resource id: plan} and "root", an exchange's plan its
-    `RssShuffleWriter`, a broadcast's the plan whose rows it collects.
-    `parts` holds each scanned table's split count (one map task a
-    split); a table it does not name is one split."""
-    parts = dict(parts or {})
-    ctx = ConvertContext()
-    for rid, plan in plans.items():
-        if rid == "root":
-            continue
-        if isinstance(plan, P.RssShuffleWriter):
-            ctx.exchanges[rid] = ShuffleJob(rid, plan.child,
-                                            plan.partitioning)
-        else:
-            ctx.broadcasts[rid] = BroadcastJob(rid, plan)
-    root = plans["root"]
-    stages = [root] + [j.child for j in ctx.exchanges.values()] + \
-        [j.child for j in ctx.broadcasts.values()]
-    for plan in stages:
-        ctx.set_parts(plan, _stage_parts(plan, ctx.exchanges, parts))
-        for rid in _readers(plan, "ffi_reader"):
-            ctx.sources.setdefault(rid, ForeignSource(rid))
-    return root, ctx
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,17 @@ global aggregate over one emits the one row of `_empty_global_agg`
 skipping rule of the JAX package applies: once enough rows came in and
 the groups are nearly as many as the rows, the operator emits what it
 holds and passes the rest of its input through, grouped batch by batch.
+
+Spill: the operator is a memory consumer.  Under pressure its staged
+groups merge into one key-sorted state run and spill (memmgr/spill.py);
+at the end the runs merge through the sort's `HostKeyMerger`, each
+merged batch is merge-reduced with the group carried from the last one,
+and every group but the last goes out (`_merge_spilled`).  A global
+aggregate's one-row runs are concatenated and reduced once.  A spilled
+float sum adds in another order than the in-memory one.  A partial
+aggregate that starts passing its input through with runs already
+spilled (`auron.partial.agg.skipping.skip.spill`) emits those runs'
+partial states first.
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ from auron_tpu_torch.exprs.compiler import build_evaluator
 from auron_tpu_torch.ir.expr import AggExpr
 from auron_tpu_torch.ir.schema import Field, Schema, TypeId
 from auron_tpu_torch.ops.agg.functions import AggSpec, make_spec
-from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.ops.base import Operator, StagingOperator, TaskContext
 from auron_tpu_torch.ops.sort_keys import (
     encode_sort_keys, encode_sort_keys_bits, keys_equal_prev,
     lexsort_indices, normalize_f64, value_bits,
@@ -57,7 +68,7 @@ from auron_tpu_torch.ops.sort_keys import (
 _MERGE_FANIN = 8
 
 
-class AggExec(Operator):
+class AggExec(StagingOperator):
     def __init__(self, child: Operator, exec_mode: str, grouping,
                  grouping_names, aggs: Tuple[AggExpr, ...], agg_names,
                  supports_partial_skipping: bool = False):
@@ -93,11 +104,11 @@ class AggExec(Operator):
         out_schema = self.state_schema if exec_mode == "partial" else \
             Schema(tuple(key_fields + [Field(n, a.return_type)
                                        for n, a in zip(agg_names, aggs)]))
-        super().__init__(out_schema, [child])
+        StagingOperator.__init__(self, out_schema, [child], "AggExec", "agg")
         self.supports_partial_skipping = supports_partial_skipping and \
             exec_mode == "partial" and \
             bool(conf.get("auron.partial.agg.skipping.enable"))
-        self._staged: List[Batch] = []
+        self._dev = torch.device("cpu")
 
     # -- grouping ------------------------------------------------------
 
@@ -125,21 +136,37 @@ class AggExec(Operator):
     # -- staged accumulation -------------------------------------------
 
     def _stage(self, grouped: Batch, device: torch.device) -> None:
-        self._staged.append(grouped)
-        if len(self._staged) >= _MERGE_FANIN:
-            self._compact(device)
+        if len(self._staged) + 1 >= _MERGE_FANIN:
+            self.set_staged([self._merged(self._staged + [grouped], device)])
+        else:
+            self.stage(grouped)
+
+    def _merged(self, batches: List[Batch], device: torch.device) -> Batch:
+        """The grouped batches merged into one, key-sorted."""
+        if len(batches) == 1:
+            return batches[0]
+        merged = concat_batches(self.state_schema, batches)
+        return self._reduce(merged.columns[:self.nk],
+                            self._state_slices(merged.columns[self.nk:]),
+                            merged.num_rows, merge=True, device=device)
 
     def _compact(self, device: torch.device) -> Optional[Batch]:
-        """Merge the staged grouped batches into one."""
+        """The staged grouped batches merged into one, staged alone."""
         if len(self._staged) > 1:
-            merged = concat_batches(self.state_schema, self._staged)
-            self._staged = [self._reduce(
-                merged.columns[:self.nk],
-                self._state_slices(merged.columns[self.nk:]),
-                merged.num_rows, merge=True, device=device)]
+            self.set_staged([self._merged(self._staged, device)])
         return self._staged[0] if self._staged else None
 
+    # -- memory --------------------------------------------------------
+
+    def sorted_run(self, batches: List[Batch]) -> List[Batch]:
+        return [self._merged(batches, self._dev)]
+
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
+        self._dev = ctx.device
+        with self.spill_scope(ctx):
+            yield from self._execute(ctx)
+
+    def _execute(self, ctx: TaskContext) -> Iterator[Batch]:
         merge_input = self.exec_mode == "final"
         dev = ctx.device
         input_rows = 0
@@ -156,12 +183,18 @@ class AggExec(Operator):
             if input_rows >= int(conf.get(
                     "auron.partial.agg.skipping.min.rows")):
                 acc = self._compact(dev)
-                if acc.num_rows / input_rows >= float(conf.get(
+                if acc is None:     # the state went to a spill just now
+                    continue
+                skip_ok = not len(self._spills) or bool(conf.get(
+                    "auron.partial.agg.skipping.skip.spill"))
+                if skip_ok and acc.num_rows / input_rows >= float(conf.get(
                         "auron.partial.agg.skipping.ratio")):
                     passthrough = True
                     self.count("partial_skipped", 1)
+                    for sp in self._spills.spills:
+                        yield from sp.read_batches()
                     yield acc
-                    self._staged = []
+                    self.set_staged([])
                     break
         if passthrough:
             for b in stream:
@@ -169,13 +202,50 @@ class AggExec(Operator):
                     yield self._reduce(*self._eval(b, False), b.num_rows,
                                        merge=False, device=dev)
             return
-        acc = self._compact(dev)
-        self._staged = []
-        if acc is None:
+        if len(self._spills):
+            self.spill()
+            yield from self._merge_spilled(dev)
+            return
+        staged = self.take_staged()
+        if not staged:
             if self.nk == 0 and self.exec_mode != "partial":
                 yield self._empty_global_agg(dev)
             return
-        yield acc if self.exec_mode == "partial" else self._finalize(acc)
+        yield self._emit(self._merged(staged, dev))
+
+    def _emit(self, acc: Batch) -> Batch:
+        return acc if self.exec_mode == "partial" else self._finalize(acc)
+
+    def _merge_spilled(self, dev: torch.device) -> Iterator[Batch]:
+        """The k-way merge of the spilled key-sorted state runs: each
+        merged batch, after the group carried from the last, is
+        merge-reduced, and every group but the last goes out; resident
+        memory is one merged batch, not every run."""
+        from auron_tpu_torch.ops.sort import HostKeyMerger
+        runs = [s.read_batches() for s in self._spills.spills]
+        if self.nk == 0:
+            # a global aggregate: one state row a run
+            merged = concat_batches(self.state_schema,
+                                    [b for r in runs for b in r])
+            yield self._emit(self._reduce(
+                [], self._state_slices(merged.columns), merged.num_rows,
+                merge=True, device=dev))
+            return
+        nk = self.nk
+        merger = HostKeyMerger(lambda b: b.columns[:nk],
+                               [(True, True)] * nk)
+        carry: Optional[Batch] = None
+        for mb in merger.merge(runs):
+            if carry is not None:
+                mb = concat_batches(self.state_schema, [carry, mb])
+            g = self._reduce(mb.columns[:nk],
+                             self._state_slices(mb.columns[nk:]),
+                             mb.num_rows, merge=True, device=dev)
+            if g.num_rows > 1:
+                yield self._emit(g.head(g.num_rows - 1))
+            carry = g.slice(g.num_rows - 1, 1)
+        if carry is not None:
+            yield self._emit(carry)
 
     def _finalize(self, acc: Batch) -> Batch:
         out = list(acc.columns[:self.nk])

@@ -13,6 +13,12 @@ probe-side rows) of `kernel.pair_chunk`, as the JAX package reads one
 (`kernel.compact_padded`).  Chunk 0 computes the probe-side emission
 too, so a probe batch of at most one chunk of pairs costs one read.
 
+The sort-merge join is a memory consumer: under pressure the larger
+of its cursors' buffers spills (ops/joins/smj.py), and a frontier window
+of one key past `auron.smj.window.max.rows` escapes to
+`_join_giant_group`, whose build chunks and probe rows of that key go
+through the spill tiers.
+
 Not in the port yet: the JAX package's eager probe over host columns
 (the port keeps every column on the device) and its bucket-partitioned
 probe index (`ops/strategy.py::join_probe_strategy`).
@@ -20,6 +26,7 @@ probe index (`ops/strategy.py::join_probe_strategy`).
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator, List, Tuple
 
 import torch
@@ -32,7 +39,8 @@ from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs.compiler import build_evaluator
 from auron_tpu_torch.ir.plan import JoinOn
 from auron_tpu_torch.ir.schema import DataType, Field, Schema
-from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.memmgr import MemConsumer, SpillManager
+from auron_tpu_torch.ops.base import Operator, TaskContext, compact_indices
 from auron_tpu_torch.ops.joins.kernel import (
     BuildTable, compact_padded, null_columns_like, pair_chunk, probe_range,
 )
@@ -291,15 +299,15 @@ class BroadcastJoinBuildHashMapExec(Operator):
             yield table.batch
 
 
-class SortMergeJoinExec(_HashJoinBase):
+class SortMergeJoinExec(_HashJoinBase, MemConsumer):
     """Sort-merge join of two key-sorted inputs.  Streaming (the default,
     `auron.smj.streaming.enable`): a frontier, the smaller of the two
     sides' last buffered keys, bounds each window, and the complete key
     groups below it are joined window by window with the hash kernel, so
     resident rows are about one batch per side plus the largest key
-    group (ops/joins/smj.py).  Otherwise the build side is materialized
-    whole and the other side probes it.  The cursors keep their rows on
-    the device: there is no spill yet (ROADMAP Queue 1 item 9)."""
+    group (ops/joins/smj.py), and the buffers spill under pressure.
+    Otherwise the build side is materialized whole and the other side
+    probes it."""
 
     def __init__(self, left, right, on, join_type, sort_options=(),
                  existence_name="exists"):
@@ -307,8 +315,26 @@ class SortMergeJoinExec(_HashJoinBase):
             else "right"
         super().__init__(left, right, on, join_type, build_side,
                          existence_name)
+        MemConsumer.__init__(self, "SortMergeJoinExec")
         self.sort_options = tuple(tuple(o) for o in sort_options) or \
             tuple((True, True) for _ in on.left_keys)
+        self._spills = SpillManager("smj")
+        self._cursors: list = []
+
+    # -- MemConsumer ----------------------------------------------------
+
+    def spill(self) -> int:
+        cursors = sorted((c for c in self._cursors if c.mem_bytes > 0),
+                         key=lambda c: c.mem_bytes, reverse=True)
+        for cur in cursors:     # a cursor mid-iteration refuses; try next
+            freed = cur.spill_mem()
+            if freed:
+                self.update_mem_used(
+                    sum(c.mem_bytes for c in self._cursors))
+                return freed
+        return 0
+
+    # -- execution ------------------------------------------------------
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
         if bool(conf.get("auron.smj.streaming.enable")):
@@ -320,52 +346,221 @@ class SortMergeJoinExec(_HashJoinBase):
         from auron_tpu_torch.ops.joins.smj import SideCursor
         key_evals = (self._left_keys, self._right_keys)
         cursors = [SideCursor(self.child_stream(ctx, i), key_evals[i],
-                              self.sort_options) for i in (0, 1)]
+                              self.sort_options, self._spills, self)
+                   for i in (0, 1)]
+        self._cursors = cursors
         build_cur = cursors[self._build_i]
         probe_cur = cursors[1 - self._build_i]
-        for c in cursors:
-            c.advance()
-        while True:
-            if all(c.exhausted for c in cursors):
-                if any(not c.empty for c in cursors):
-                    yield from self._join_window(build_cur, probe_cur, None,
-                                                 ctx)
-                return
-            frontier = min(c.boundary for c in cursors if not c.exhausted)
-            self.count("smj_windows")
-            yield from self._join_window(build_cur, probe_cur, frontier, ctx)
-            for c in cursors:
-                if not c.exhausted and c.boundary == frontier:
+        try:
+            with self.mem_scope(ctx):
+                for c in cursors:
                     c.advance()
+                self.update_mem_used(sum(c.mem_bytes for c in cursors))
+                while True:
+                    if all(c.exhausted for c in cursors):
+                        if any(not c.empty for c in cursors):
+                            yield from self._join_window(
+                                build_cur, probe_cur, None, ctx)
+                        return
+                    frontier = min(c.boundary for c in cursors
+                                   if not c.exhausted)
+                    self.count("smj_windows")
+                    yield from self._join_window(build_cur, probe_cur,
+                                                 frontier, ctx)
+                    for c in cursors:
+                        if not c.exhausted and c.boundary == frontier:
+                            c.advance()
+                    self.update_mem_used(sum(c.mem_bytes for c in cursors))
+        finally:
+            self._cursors = []
+            self._spills.release_all()
 
     def _join_window(self, build_cur, probe_cur, frontier,
                      ctx: TaskContext) -> Iterator[Batch]:
         """Join the buffered rows strictly below the frontier: complete
         key groups, so every join type's emissions are window-local.  A
         build window past `auron.smj.window.max.rows` that holds one key
-        raises: the JAX package's escape for it spills to storage."""
-        from auron_tpu_torch.ops.joins.smj import cmp_keys, host_keys_of_rows
+        escapes to `_join_giant_group`; a window of several keys keeps
+        this path."""
+        from auron_tpu_torch.ops.joins.smj import host_keys_of_rows
         cap_rows = int(conf.get("auron.smj.window.max.rows"))
-        build_batches = list(build_cur.iter_ready(frontier))
-        got = sum(b.num_rows for b in build_batches)
-        if cap_rows and got > cap_rows:
-            first, last = build_batches[0], build_batches[-1]
-            [kf] = host_keys_of_rows(build_cur.keys_of(first), [0],
-                                     self.sort_options)
-            [kl] = host_keys_of_rows(build_cur.keys_of(last),
-                                     [last.num_rows - 1], self.sort_options)
-            if cmp_keys(kf, kl) == 0:
-                raise NotImplementedError(
-                    f"a sort-merge join window of {got} build rows under "
-                    f"one key, past auron.smj.window.max.rows ({cap_rows}): "
-                    f"the giant-group escape (_join_giant_group) spills to "
-                    f"storage, which auron_tpu_torch has not yet (ROADMAP "
-                    f"Queue 1 item 9)")
-        probe_batches = probe_cur.iter_ready(frontier)
+        build_iter = build_cur.iter_ready(frontier)
+        build_batches: List[Batch] = []
+        got = 0
+        kf = None           # the window's first key, read once past the cap
+        multi_key = False   # latched: a window of several keys stays one
+        for b in build_iter:
+            build_batches.append(b)
+            got += b.num_rows
+            if cap_rows and got > cap_rows and not multi_key:
+                if kf is None:
+                    [kf] = host_keys_of_rows(
+                        build_cur.keys_of(build_batches[0]), [0],
+                        self.sort_options)
+                [kl] = host_keys_of_rows(build_cur.keys_of(b),
+                                         [b.num_rows - 1],
+                                         self.sort_options)
+                if kf == kl:
+                    self.count("giant_group_escapes")
+                    yield from self._join_giant_group(
+                        ctx, build_batches, build_iter, probe_cur,
+                        frontier, kf)
+                    return
+                multi_key = True
+        yield from self._join_materialized(
+            ctx, build_batches, probe_cur.iter_ready(frontier))
+
+    def _join_materialized(self, ctx: TaskContext, build_batches,
+                           probe_batches) -> Iterator[Batch]:
+        """A window's join: a table over `build_batches`, every batch of
+        `probe_batches` probing it."""
         if not build_batches and self.join_type in (
                 "inner", "left_semi", "right_semi"):
             for _ in probe_batches:     # drain: no row can come out
                 pass
             return
-        table = self._build_from_batches(build_batches, ctx)
+        table = self._build_from_batches(list(build_batches), ctx)
         yield from self._probe_all(ctx, table, probe_batches)
+
+    def _join_giant_group(self, ctx: TaskContext, head_batches,
+                          build_iter, probe_cur, frontier,
+                          key) -> Iterator[Batch]:
+        """The bounded join of a single-key window that outgrew
+        `auron.smj.window.max.rows` (the all-ties shape).  Every row of
+        the group has one key, so matching is set logic: with a non-null
+        key and both sides' groups non-empty, every build row matches
+        every probe row.  The group's build rows spill in chunks of
+        about a quarter of the cap, its probe rows once; the pair join
+        types emit each chunk's cross product with each probe batch,
+        and the semi, anti, existence and outer emissions follow from
+        the two groups' sizes.  The window's rows of other keys join
+        normally at the end.  Resident memory is one chunk and one
+        batch, whatever the group's size."""
+        from auron_tpu_torch.ops.joins.smj import rows_equal_key
+        orders = self.sort_options
+        jt = self.join_type
+        bs = int(conf.get("auron.batch.size"))
+
+        def take(b: Batch, mask: torch.Tensor):
+            idx, n = compact_indices(mask[:b.num_rows])
+            cap = bucket_capacity(n)
+            return b.gather(torch.nn.functional.pad(idx, (0, cap - n)),
+                            n) if n else None
+
+        def split_eq(b: Batch, key_eval):
+            eq = rows_equal_key(key_eval(b), key, orders)
+            return take(b, eq), take(b, ~eq)
+
+        # 1. the build window: the key's rows spill in chunks, other keys
+        # stay for the residual window
+        cap_rows = int(conf.get("auron.smj.window.max.rows"))
+        chunk_target = max(cap_rows // 4, bs)
+        build_spills = []
+        chunk: List[Batch] = []
+        residual_build: List[Batch] = []
+        b_k = 0
+        key_is_null = None
+
+        def flush_chunk():
+            if chunk:
+                sp = self._spills.new_spill()
+                self.count_spill(sp, sp.write_batches(chunk))
+                build_spills.append(sp)
+                chunk.clear()
+
+        for b in itertools.chain(head_batches, build_iter):
+            gk, rest = split_eq(b, self._build_keys)
+            if gk is not None:
+                if key_is_null is None:
+                    key_is_null = not all(
+                        bool(c.validity[0]) for c in self._build_keys(gk))
+                b_k += gk.num_rows
+                chunk.append(gk)
+                if sum(x.num_rows for x in chunk) >= chunk_target:
+                    flush_chunk()
+            if rest is not None:
+                residual_build.append(rest)
+        flush_chunk()
+
+        # 2. the probe window's rows of the key spill once
+        probe_spill = self._spills.new_spill()
+        residual_probe: List[Batch] = []
+        p_k = 0
+
+        def probe_rows():
+            nonlocal p_k
+            for b in probe_cur.iter_ready(frontier):
+                gk, rest = split_eq(b, self._probe_keys)
+                if gk is not None:
+                    p_k += gk.num_rows
+                    yield gk
+                if rest is not None:
+                    residual_probe.append(rest)
+        self.count_spill(probe_spill, probe_spill.write_batches(
+            probe_rows()))
+
+        matched_probe = not key_is_null and b_k > 0
+        matched_build = not key_is_null and p_k > 0
+        side_kind = self._side_kind()
+        build_schema = self.children[self._build_i].schema
+        probe_schema = self.children[1 - self._build_i].schema
+
+        # 3. the pair join types: each chunk x each probe batch
+        if jt in _PAIR_SIDES and matched_probe and p_k > 0:
+            for sp in build_spills:
+                parts = list(sp.read_batches())
+                cb = parts[0] if len(parts) == 1 else \
+                    concat_batches(build_schema, parts)
+                c = cb.num_rows
+                for pb in probe_spill.read_batches():
+                    p = pb.num_rows
+                    step = max(1, bs // p)
+                    for off in range(0, c, step):
+                        m = min(step, c - off)
+                        n = p * m
+                        cap = bucket_capacity(n)
+                        pad = (0, cap - n)
+                        pi = torch.arange(p, device=pb.device).repeat(m)
+                        bi = torch.arange(off, off + m, device=cb.device) \
+                            .repeat_interleave(p)
+                        yield self._pairs(
+                            pb.gather(torch.nn.functional.pad(pi, pad),
+                                      n).columns,
+                            cb.gather(torch.nn.functional.pad(bi, pad),
+                                      n).columns, n, cap)
+
+        # the probe side's emissions over its rows of the key
+        if p_k > 0:
+            for pb in probe_spill.read_batches():
+                live = torch.arange(pb.capacity, device=pb.device) < \
+                    pb.num_rows
+                if side_kind == "unmatched" and not matched_probe:
+                    yield self._pairs(
+                        pb.columns, null_columns_like(
+                            build_schema, pb.capacity, pb.device),
+                        pb.num_rows, pb.capacity)
+                elif (side_kind == "semi" and matched_probe) or \
+                        (side_kind == "anti" and not matched_probe):
+                    yield Batch(self.schema, list(pb.columns), pb.num_rows,
+                                pb.capacity)
+                elif side_kind == "existence":
+                    ex = DeviceColumn(DataType.bool_(),
+                                      live & matched_probe, live)
+                    yield Batch(self.schema, list(pb.columns) + [ex],
+                                pb.num_rows, pb.capacity)
+
+        # the build side's null extension when no probe row matched
+        if self._track_build() and not matched_build and b_k > 0:
+            for sp in build_spills:
+                for cb in sp.read_batches():
+                    yield self._pairs(null_columns_like(
+                        probe_schema, cb.capacity, cb.device), cb.columns,
+                        cb.num_rows, cb.capacity)
+        for sp in build_spills:
+            sp.release()
+        probe_spill.release()
+
+        # 4. the residual window: every other key below the frontier
+        if residual_build or residual_probe:
+            yield from self._join_materialized(ctx, residual_build,
+                                               iter(residual_probe))

@@ -1,16 +1,21 @@
-"""Sort operator, in memory (counterpart of auron_tpu/ops/sort.py).
+"""External sort operator (counterpart of auron_tpu/ops/sort.py).
 
-`SortExec` stages its input, concatenates it into one batch (string
+`SortExec` stages its input and registers with the task's memory
+manager.  In memory it concatenates the staged batches into one (string
 columns padded to the widest part, so every row's key has the same
 words), encodes the sort keys into words (ops/sort_keys.py), sorts them
 with the JAX package's strategy switch (`lexsort_indices`), gathers the
-rows, and cuts the result into batch-size chunks; fetch limit and offset
-apply as in the JAX operator.  Its metric `sorted_by_<form>` counts the sorts of each
-form (`sort_keys.sort_form`).  The JAX operator's spill runs, its host
-k-way merge (`HostKeyMerger`) and its host sort of host-resident key
-columns wait for the port's memory manager: this operator keeps every
-staged row on the device, and when the card cannot hold them torch
-raises its out-of-memory error; no row is dropped.
+rows, and cuts the result into batch-size chunks; fetch limit and
+offset apply as in the JAX operator.  Its metric `sorted_by_<form>`
+counts the sorts of each form (`sort_keys.sort_form`).
+
+Under memory pressure the staged batches are sorted into a run and
+spilled (memmgr/spill.py), and at the end the runs merge through
+`HostKeyMerger`, the k-way merge with safe-prefix emission, before the
+fetch limit and offset apply.  The merge takes equal keys from earlier
+runs first, so a spilled sort equals the in-memory stable sort row for
+row.  The JAX package's host sort of host-resident key columns
+(`_sort_batch_host`) waits for host columns (ROADMAP Queue 1 item 11).
 
 `_np_encode_key` is the host mirror of the device encoder, used to encode
 range bounds in the same key space (ops/shuffle/partitioner.py); it has
@@ -19,34 +24,39 @@ no string arm, since no range exchange of the port sorts by a string.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from auron_tpu_torch.columnar.batch import Batch, concat_batches
+from auron_tpu_torch.columnar.batch import (
+    Batch, Column, bucket_capacity, concat_batches,
+)
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs.compiler import build_evaluator
 from auron_tpu_torch.ir.expr import SortExpr
 from auron_tpu_torch.ir.schema import DataType, TypeId
-from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.ops.base import Operator, StagingOperator, TaskContext
 from auron_tpu_torch.ops.sort_keys import (
     F64_NEG_FLIP, MASK32, NARROW_INTS, encode_sort_keys,
-    encode_sort_keys_bits, lexsort_indices, sort_form, value_bits,
+    encode_sort_keys_bits, lexsort_indices, lexsort_indices_live,
+    sort_form, value_bits,
 )
 
 
-class SortExec(Operator):
+class SortExec(StagingOperator):
     def __init__(self, child: Operator, sort_exprs: Tuple[SortExpr, ...],
                  fetch_limit: Optional[int] = None, fetch_offset: int = 0):
-        super().__init__(child.schema, [child])
+        StagingOperator.__init__(self, child.schema, [child], "SortExec",
+                                 "sort")
         self.sort_exprs = tuple(sort_exprs)
         self.fetch_limit = fetch_limit
         self.fetch_offset = fetch_offset
         self._key_eval = build_evaluator(
             tuple(s.child for s in self.sort_exprs), child.schema)
         self._orders = tuple((s.asc, s.nulls_first) for s in self.sort_exprs)
-        self._staged: List[Batch] = []
+
+    # -- sorting ------------------------------------------------------------
 
     def _sort_batch(self, b: Batch) -> Batch:
         key_cols = self._key_eval(b)
@@ -60,23 +70,32 @@ class SortExec(Operator):
             out = out.head(self.fetch_offset + self.fetch_limit)
         return out
 
-    def _sort_staged(self) -> List[Batch]:
-        """Sort all staged batches into one run (list of output batches)."""
-        if not self._staged:
+    def sorted_run(self, batches: List[Batch]) -> List[Batch]:
+        if not batches:
             return []
-        merged = concat_batches(self.schema, self._staged)
+        merged = concat_batches(self.schema, batches)
         return _rechunk(self._sort_batch(merged),
                         int(conf.get("auron.batch.size")))
 
+    # -- execution ----------------------------------------------------------
+
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
-        for b in self.child_stream(ctx):
-            if b.num_rows:
-                self._staged.append(b)
-        out = self._sort_staged()
-        self._staged = []
+        yield from self.run_staged(ctx, self._in_memory, self._merge)
+
+    def _in_memory(self, batches: List[Batch]) -> Iterator[Batch]:
+        out = self.sorted_run(batches)
         self.count("sorted_rows", sum(b.num_rows for b in out))
-        yield from _apply_offset(iter(out), self.fetch_offset,
-                                 self.fetch_limit)
+        return _apply_offset(iter(out), self.fetch_offset, self.fetch_limit)
+
+    def _merge(self, runs: List[Iterator[Batch]]) -> Iterator[Batch]:
+        merger = HostKeyMerger(self._key_eval, self._orders)
+        return _apply_offset(self._counted(merger.merge(runs)),
+                             self.fetch_offset, self.fetch_limit)
+
+    def _counted(self, batches: Iterator[Batch]) -> Iterator[Batch]:
+        for b in batches:
+            self.count("sorted_rows", b.num_rows)
+            yield b
 
 
 def _rechunk(b: Batch, target: int) -> List[Batch]:
@@ -107,6 +126,104 @@ def _apply_offset(batches: Iterator[Batch], offset: int,
             b = b.head(remaining)
         remaining -= b.num_rows
         yield b
+
+
+# ---------------------------------------------------------------------------
+# k-way merge of sorted runs (the loser-tree analogue): safe-prefix
+# emission over the runs' key words
+# ---------------------------------------------------------------------------
+
+KeyEval = Callable[[Batch], Sequence[Column]]
+
+
+def _take(b: Batch, idx: torch.Tensor) -> Batch:
+    """Rows `idx` of a batch, at capacity bucket_capacity(len(idx))."""
+    n = int(idx.shape[0])
+    cap = bucket_capacity(n)
+    return b.gather(torch.nn.functional.pad(idx, (0, cap - n)), n)
+
+
+def rows_at_or_below(words: Sequence[torch.Tensor], bound: Sequence[int]
+                     ) -> torch.Tensor:
+    """bool[rows]: the row's word tuple is at or below `bound`
+    (lexicographic; the words are int64, ordered as signed)."""
+    lt = torch.zeros(words[0].shape[0], dtype=torch.bool,
+                     device=words[0].device)
+    eq = torch.ones_like(lt)
+    for w, f in zip(words, bound):
+        lt |= eq & (w < f)
+        eq &= w == f
+    return lt | eq
+
+
+class HostKeyMerger:
+    """K-way merge of sorted runs, each an iterator of sorted batches, by
+    the keys `key_eval` computes under `orders`.
+
+    Each round moves every run's current batch into a pool (after the
+    rows held back from the last round), concatenates the pool on the
+    task's device, encodes its keys at the pool's one string width, and
+    stably sorts the pool by (key words, run index).  A run's later rows
+    sort at or after (its current last key, its index); the bound is the
+    least of these over the runs not yet exhausted, picked on the host,
+    and every pool row at or below it is final and goes out in
+    batch-size chunks, the rest waits for the next round.  The JAX merger re-encodes Arrow
+    keys on the host for the same comparison; here the words are the
+    device sort's own (ops/sort_keys.py), strings included.  Equal keys
+    come out in run order, and within a run in its order.  Two host
+    reads a round: the runs' last keys and the safe prefix's length."""
+
+    def __init__(self, key_eval: KeyEval,
+                 orders: Sequence[Tuple[bool, bool]]):
+        self.key_eval = key_eval
+        self.orders = list(orders)
+
+    def merge(self, runs: List[Iterator[Batch]]) -> Iterator[Batch]:
+        def pull(i: int) -> Optional[Batch]:
+            return next((b for b in runs[i] if b.num_rows), None)
+
+        heads = [pull(i) for i in range(len(runs))]
+        # rows held back: (batch, run index of each row)
+        pool: List[Tuple[Batch, torch.Tensor]] = []
+        bs = int(conf.get("auron.batch.size"))
+        while True:
+            active = [i for i, h in enumerate(heads) if h is not None]
+            if not active:
+                break
+            entries = list(pool)
+            last_rows = []     # pool row of each run's last row, if it
+            off = sum(b.num_rows for b, _ in entries)   # has more rows
+            for i in active:
+                h = heads[i]
+                entries.append((h, torch.full((h.num_rows,), i,
+                                              dtype=torch.int64,
+                                              device=h.device)))
+                off += h.num_rows
+                heads[i] = pull(i)
+                if heads[i] is not None:
+                    last_rows.append(off - 1)
+            merged = concat_batches(entries[0][0].schema,
+                                    [b for b, _ in entries])
+            run_of = torch.cat([r for _, r in entries])
+            n = merged.num_rows
+            key_cols = [c.prefix(n) for c in self.key_eval(merged)]
+            words = encode_sort_keys(key_cols, self.orders) + [run_of]
+            perm = lexsort_indices_live(
+                words, None, encode_sort_keys_bits(key_cols) + [32])
+            if not last_rows:
+                safe = n
+            else:
+                # a run's later rows sort at or after (its last key, its
+                # index): rows up to the least of these are final
+                at = torch.tensor(last_rows, device=run_of.device)
+                bound = min(map(tuple, torch.stack(
+                    [w[at] for w in words], 1).tolist()))
+                safe = int(rows_at_or_below(words, bound).sum())
+            for lo in range(0, safe, bs):
+                yield _take(merged, perm[lo:min(lo + bs, safe)])
+            rest = perm[safe:]
+            pool = [(_take(merged, rest), run_of[rest])] if len(rest) \
+                else []
 
 
 def _np_encode_key(vals: np.ndarray, mask: np.ndarray, dtype: DataType,

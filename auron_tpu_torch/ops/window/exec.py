@@ -33,9 +33,13 @@ Where the port keeps Spark's semantics and the JAX package does not
   the current row), and nth_value_ignore_nulls, which counts only the
   non-null values.
 
-The JAX operator spills staged input as sorted runs; that waits for the
-port's memory manager (ROADMAP Queue 1 item 15): this operator holds a
-task's rows on the device, as `SortExec` does.
+Spill: the operator is a memory consumer.  Under pressure its staged
+input is sorted by (partition, order) and spilled as a run
+(memmgr/spill.py); at the end the runs merge through the sort's
+`HostKeyMerger`, and each merged batch's rows below its last partition
+key close their partitions, which are processed with the rows carried
+from before; the last partition stays carried.  Equal keys merge in
+input order, so a spilled window equals the in-memory one row for row.
 """
 
 from __future__ import annotations
@@ -55,7 +59,9 @@ from auron_tpu_torch.ir.expr import Literal
 from auron_tpu_torch.ir.plan import WindowFuncCall, WindowGroupLimit
 from auron_tpu_torch.ir.schema import DataType, Field, Schema
 from auron_tpu_torch.ops import segments
-from auron_tpu_torch.ops.base import Operator, TaskContext, compact_indices
+from auron_tpu_torch.ops.base import (
+    Operator, StagingOperator, TaskContext, compact_indices,
+)
 from auron_tpu_torch.ops.sort import _rechunk
 from auron_tpu_torch.ops.sort_keys import (
     encode_sort_keys, encode_sort_keys_bits, f64_from_word, f64_word,
@@ -65,7 +71,7 @@ from auron_tpu_torch.ops.sort_keys import (
 Ctx = Dict[str, Any]
 
 
-class WindowExec(Operator):
+class WindowExec(StagingOperator):
     def __init__(self, child: Operator, window_funcs, partition_by,
                  order_by, group_limit: Optional[WindowGroupLimit] = None,
                  output_window_cols: bool = True):
@@ -79,7 +85,8 @@ class WindowExec(Operator):
         if output_window_cols:
             for wf in self.window_funcs:
                 fields.append(Field(wf.name or wf.fn, _declared_type(wf)))
-        super().__init__(Schema(tuple(fields)), [child])
+        StagingOperator.__init__(self, Schema(tuple(fields)), [child],
+                                 "WindowExec", "window")
         for wf in self.window_funcs:
             _check_function(wf)
         self._part_eval = build_evaluator(self.partition_by, in_schema)
@@ -91,21 +98,18 @@ class WindowExec(Operator):
         self._literals: Dict[tuple, DeviceStringColumn] = {}
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
-        batches = [b for b in self.child_stream(ctx) if b.num_rows]
-        if batches:
-            yield from self._process_batches(batches)
+        yield from self.run_staged(ctx, self._process_batches,
+                                   self._merge_spilled)
 
-    def _process_batches(self, batches: List[Batch]) -> Iterator[Batch]:
-        n = sum(b.num_rows for b in batches)
-        merged = concat_batches(self.children[0].schema, batches,
-                                bucket_capacity(n))
-        result = self.window_batch(merged)
-        if result is not None:
-            yield from _rechunk(result, int(conf.get("auron.batch.size")))
+    # -- spill: staged input as (partition, order)-sorted runs ----------
 
-    def window_batch(self, merged: Batch) -> Optional[Batch]:
-        """The window over every row of one padded batch, as one batch
-        (None when the group limit keeps no row)."""
+    def _key_orders(self):
+        return [(True, True)] * len(self.partition_by) + \
+            [(s.asc, s.nulls_first) for s in self.order_by]
+
+    def _sort_perm(self, merged: Batch):
+        """(perm, partition words, order words) of a padded batch: the
+        stable (partition, order) sort of its live rows."""
         n, cap = merged.num_rows, merged.capacity
         pcols = self._part_eval(merged)
         ocols = self._order_eval(merged)
@@ -117,6 +121,60 @@ class WindowExec(Operator):
                                encode_sort_keys_bits(pcols) +
                                encode_sort_keys_bits(ocols)) \
             if pwords or owords else torch.arange(cap, device=merged.device)
+        return perm, pwords, owords
+
+    def sorted_run(self, batches: List[Batch]) -> List[Batch]:
+        merged = concat_batches(self.children[0].schema, batches)
+        perm, _, _ = self._sort_perm(merged)
+        return _rechunk(merged.gather(perm, merged.num_rows),
+                        int(conf.get("auron.batch.size")))
+
+    def _merge_spilled(self, runs: List[Iterator[Batch]]
+                       ) -> Iterator[Batch]:
+        """The runs' merge, processed a group of complete partitions at a
+        time: only the open partition at the end of each merged batch
+        stays carried."""
+        from auron_tpu_torch.ops.sort import HostKeyMerger
+        merger = HostKeyMerger(
+            lambda b: list(self._part_eval(b)) + list(self._order_eval(b)),
+            self._key_orders())
+        carry: List[Batch] = []
+        for mb in merger.merge(runs):
+            n = mb.num_rows
+            if self.partition_by:
+                pcols = [c.prefix(n) for c in self._part_eval(mb)]
+                pwords = encode_sort_keys(pcols,
+                                          [(True, True)] * len(pcols))
+                same = torch.ones(n, dtype=torch.bool, device=mb.device)
+                for w in pwords:
+                    same &= w == w[n - 1]
+                # the batch is sorted: the last partition is a suffix
+                k = n - int(same.sum())
+                if k:
+                    yield from self._process_batches(
+                        carry + [mb.slice(0, k)])
+                    carry = []
+                    mb = mb.slice(k, n - k)
+            carry.append(mb)
+            self.update_mem_used(sum(b.mem_bytes() for b in carry))
+        if carry:
+            yield from self._process_batches(carry)
+
+    def _process_batches(self, batches: List[Batch]) -> Iterator[Batch]:
+        if not batches:
+            return
+        n = sum(b.num_rows for b in batches)
+        merged = concat_batches(self.children[0].schema, batches,
+                                bucket_capacity(n))
+        result = self.window_batch(merged)
+        if result is not None:
+            yield from _rechunk(result, int(conf.get("auron.batch.size")))
+
+    def window_batch(self, merged: Batch) -> Optional[Batch]:
+        """The window over every row of one padded batch, as one batch
+        (None when the group limit keeps no row)."""
+        n, cap = merged.num_rows, merged.capacity
+        perm, pwords, owords = self._sort_perm(merged)
         sorted_b = merged.gather(perm, n)
         live = torch.arange(cap, device=merged.device) < n
         c = segment_context([w[perm] for w in pwords],

@@ -3,14 +3,16 @@
 `execute_task_bytes` is the wire entry point, the JNI analogue: a
 serialized `TaskDefinition` in, the root operator's batches out.  Every
 entry point runs on the card unless the caller passes `device="cpu"`.
-The JAX runtime's memory manager, retry tiers, plan verifier, fusion
-pass and tracing are not in this slice.
+A task runs under the process's memory manager (`memmgr.get_manager()`),
+so its sort, aggregation, window and sort-merge join spill past the
+budget.  The JAX runtime's retry tiers, plan verifier, fusion pass and
+tracing are not in the port yet (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -19,7 +21,8 @@ from auron_tpu_torch.columnar.batch import Batch, empty_numpy
 from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ir import serde as ir_serde
 from auron_tpu_torch.ir.schema import Schema
-from auron_tpu_torch.ops.base import TaskContext
+from auron_tpu_torch.memmgr import get_manager
+from auron_tpu_torch.ops.base import Operator, TaskContext
 from auron_tpu_torch.runtime.planner import PhysicalPlanner
 from auron_tpu_torch.runtime.resources import ResourceRegistry
 
@@ -29,6 +32,13 @@ class ExecutionResult:
     batches: List[Batch]
     schema: Schema
     metrics: Dict[str, int] = field(default_factory=dict)   # root operator
+    # every operator's counters, pre-order: (class name, counters)
+    operator_metrics: List[Tuple[str, Dict[str, int]]] = field(
+        default_factory=list)
+
+    def summed(self, name: str) -> int:
+        """A counter summed over every operator of the task."""
+        return sum(m.get(name, 0) for _, m in self.operator_metrics)
 
     def to_numpy(self) -> Dict[str, tuple]:
         """{column name: (data, validity)} of all rows, on the host (a
@@ -52,9 +62,20 @@ def execute_task(task: P.TaskDefinition,
                       partition_id=task.partition_id,
                       num_partitions=task.num_partitions,
                       resources=resources if resources is not None
-                      else ResourceRegistry(), device=dev)
+                      else ResourceRegistry(), device=dev,
+                      mem_manager=get_manager())
     out = [b for b in root.execute(ctx) if b.num_rows > 0]
-    return ExecutionResult(out, root.schema, dict(root.metrics))
+    return ExecutionResult(out, root.schema, dict(root.metrics),
+                           _operator_metrics(root))
+
+
+def _operator_metrics(root: Operator) -> List[Tuple[str, Dict[str, int]]]:
+    out, stack = [], [root]
+    while stack:
+        op = stack.pop()
+        out.append((type(op).__name__, dict(op.metrics)))
+        stack.extend(reversed(op.children))
+    return out
 
 
 def execute_plan(plan: P.PlanNode, partition_id: int = 0,

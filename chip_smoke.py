@@ -99,7 +99,7 @@ the sources in this checkout.  Phases, each fatal on failure:
     groups joined in Python, the histogram on every writer batch and no
     hash-pid (two keys); print the seconds phases 13-14 took;
 15. (run last) hold each kernel bit-exact against its plain version at
-    every (rows, n_parts) the writers of phases 3-14, 16-18 and 21-24
+    every (rows, n_parts) the writers of phases 3-14, 16-18, 21-24 and 28
     gave it, as their metrics report them;
 16. run TPC-DS q09c and q41d whole as the converter lowers them, with
     string columns on the card: q09c over the store_sales rows (8 map
@@ -131,7 +131,7 @@ the sources in this checkout.  Phases, each fatal on failure:
 19. run every join type (inner, left, right, full, left and right semi
     and anti, existence) through BroadcastJoin (on the sides the JAX
     package's plan verifier lets it build), HashJoin built on each side
-    and SortMergeJoin streaming and whole-side, over two sides of 2^16
+    and SortMergeJoin streaming and whole-side, over two sides of 2^15
     rows (~16 rows a key, an eighth of the keys unmatched, nulls, a
     string payload), probe batches spanning many pair chunks, and with
     an empty build side; check each against the port's own run on the
@@ -170,47 +170,49 @@ the sources in this checkout.  Phases, each fatal on failure:
     i_manufact_id -> Projection, under one Union of 14 partitions whose
     tasks stream their assignments -> partial Sum by i_manufact_id ->
     hash(4); final -> Sort fetch 100; check the sums against numpy;
-25. run q01, q13a and q65w whole through the port's session
-    (`AuronSession.execute_converted`) on the data and plans of phases
-    17, 21 and 22 (`from_stage_plans` over `join_query_plans`): each on
-    the stage executor (`spmd` true), a cold execute and a warm one
-    (which uploads nothing), each equal to its phase's serial result
-    (the warm one to numpy too), neither kernel launched; print wall
-    time, host syncs,
-    bytes uploaded and peak memory of each; profile q01's warm stage
-    execute; run q01 once more with `auron.spmd.singleDevice.enable`
-    off, through the session's serial path: equal to phase 17, with
-    phase 17's tasks and kernel launches;
-26. run q01, q13a and q65w from their foreign plans, built by the port's
-    `it/queries.py` over a catalog of the same tables (the IT schema's
-    names and types, one chunk a split): the port's convert provider
-    `ScanSourceProvider` claims every scan, and the port's foreign engine
-    over host tables (`it/datagen.py::TableEngine`) serves each as a
-    SourceTable, one split a file group; `AuronSession.execute` tags,
-    converts and runs each on the stage path, native but for the scans (the
-    only foreign sections, as the JAX package counts them, are the plan's
-    scans, each served once, and the engine refuses any other node), cold
-    and warm (the warm execute uploads nothing), each equal to phase 25's
-    result (the warm one to numpy too), neither kernel launched; print the
-    host time of tagging and conversion, the execute times, host syncs and
-    bytes uploaded; run q01 once more with `auron.spmd.singleDevice.enable`
-    off: equal to phase 17, both kernels launched, and phase 25's serial
-    launches where the task counts are equal;
-27. generate TPC-DS at SF 1, seed 7 with the port's numpy generator
-    (`it/datagen.py::generate`, the JAX package's tables bit for bit)
-    and print the time it took; run all 103 IT queries from their
-    foreign plans through the port's `it/runner.py::QueryRunner` on the
-    card (`AuronSession.execute`, `TableEngine` serving the scans), cold
-    (the source cache emptied) and warm, each against the committed
-    expected results of the JAX package's oracle
-    (`auron_tpu_torch/it/expected_sf1_seed7.json`); print a line a query
-    (the path, or the stage executor's reason for the serial path; tag
-    and convert ms; cold and warm seconds; host syncs and bytes
-    uploaded, cold/warm; peak device memory, reset a query; rows; the
-    hash-pid/radix-hist launches), fail after the sweep if any query
-    raised or differed, print the least, median and most of each of
-    those readings, and profile the warm execute of the query with the
-    largest warm time.
+25-26. (folded into 27);
+27. run q01, q13a and q65w at SF 10 from their foreign plans, built by
+    the port's `it/queries.py` over a catalog of phases 17, 21 and 22's
+    tables (the IT schema's names and types, one chunk a split): the
+    port's convert provider `ScanSourceProvider` claims every scan, the
+    port's foreign engine over host tables (`it/datagen.py::TableEngine`)
+    serves each as a SourceTable, and `AuronSession.execute` tags,
+    converts and runs each once on the stage path: equal to its phase's
+    serial result and to numpy, neither kernel launched; then q01 with
+    `auron.spmd.singleDevice.enable` off, on the session's serial path:
+    equal to phase 17, both kernels launched, phase 17's launches where
+    the task counts are equal.  Then generate TPC-DS at SF 1, seed 7
+    with the port's numpy generator (`it/datagen.py::generate`, the JAX
+    package's tables bit for bit) and print the time it took; run all
+    103 IT queries from their foreign plans through the port's
+    `it/runner.py::QueryRunner` on the card (`AuronSession.execute`,
+    `TableEngine` serving the scans), cold (the source cache emptied)
+    and warm, each against the committed expected results of the JAX
+    package's oracle (`auron_tpu_torch/it/expected_sf1_seed7.json`);
+    print a line a query (the path, or the stage executor's reason for
+    the serial path; tag and convert ms; cold and warm seconds; host
+    syncs and bytes uploaded, cold/warm; peak device memory, reset a
+    query; rows; the hash-pid/radix-hist launches), fail after the sweep
+    if any query raised or differed, print the least, median and most of
+    each of those readings, and profile the warm execute of the query
+    with the largest warm time;
+28. run four serial SF-10 tasks through `execute_task_bytes`, each once
+    under a 32 MiB memory budget (`auron.memory.budget.bytes`, spill
+    trigger 4 MiB) and once under the default budget: (a) phase 3's
+    first map split sorted by phase 7's keys, equal row for row; (b) the
+    same rows grouped by phases 21-24's (ss_store_sk, ss_item_sk), Sum
+    and Count of the price, keys and counts exact, sums to relative
+    1e-9; (c) q65w's window task 0 (2,655,622 rows at full size), equal;
+    (d) a sort-merge inner join whose build side has 2^20 rows, 2^19 of
+    them under one key, and whose probe side has 2^15 rows, 8 of them on
+    that key, under `auron.smj.window.max.rows` 2^16, equal as a row
+    multiset to the same join uncapped and unbudgeted.  Each budgeted run
+    must spill from its operator and (d) take the giant-group escape;
+    print each run's wall time, spills, spilled bytes and tier, the
+    memory manager's pool peak and `torch.cuda.max_memory_allocated`.
+Every phase from 3 to 27 runs under the default memory budget: after
+each the memory manager's spill count is printed, and a spill fails the
+script.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -3663,30 +3665,22 @@ def check_windows(scols, svalid, cols, valid, dev, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the session and the stage executor: q01, q13a and q65w whole-table
-# (phase 25)
+# Phase 27, first part: q01, q13a and q65w at SF 10 through the session
 # ---------------------------------------------------------------------------
 
-STAGE_QUERIES = ("q01", "q13a", "q65w")
+# the columns of each phase table, as the IT schema names and types them
+FOREIGN_TABLES = {
+    "q01": {"store_returns": (("sr_customer_sk", "i64"),
+                              ("sr_store_sk", "i64"),
+                              ("sr_return_amt", "f64")),
+            "customer": CUSTOMER},
+    "q13a": {"store_sales": Q13A_SALES, "store": STORE,
+             "date_dim": DATE_YEAR},
+    "q65w": {"store_sales": Q65W_SALES},
+}
 
 
-def session_query(name, tables, n_maps):
-    """(root, ConvertContext, sources) of a query as its phase runs it:
-    `from_stage_plans` over `join_query_plans`, each table a SourceTable
-    split `n_maps[table]` ways into batch-size items, as
-    `join_stage_task` feeds a task."""
-    from auron_tpu_torch.config import conf
-    from auron_tpu_torch.frontend.converters import from_stage_plans
-    from auron_tpu_torch.ops.scan.ipc import SourceTable
-    root, ctx = from_stage_plans(join_query_plans(name, n_maps), n_maps)
-    bs = int(conf.get("auron.batch.size"))
-    sources = {t: SourceTable.from_columns(cols, valid, n_maps.get(t, 1),
-                                           bs)
-               for t, (cols, valid) in tables.items()}
-    return root, ctx, sources
-
-
-def same_result(what, got, exp, phase: int = 25) -> None:
+def same_result(what, got, exp, phase: int = 27) -> None:
     """The same rows in the same order: validity, keys, counts and
     strings exact, float columns to relative 1e-9 (another summation
     order)."""
@@ -3702,261 +3696,83 @@ def same_result(what, got, exp, phase: int = 25) -> None:
                                  f"differs")
 
 
-def count_syncs(fn) -> int:
-    """The synchronizing CUDA operations torch's sync debug mode flags
-    while `fn` runs (one warning each)."""
-    import warnings
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
-def run_stage_queries(queries, dev, K, card: str, results=None) -> dict:
-    """Each of `queries`, {name: (tables, n_maps, serial out, numpy
-    check)}, through the session twice, cold (the source cache emptied)
-    and warm: the stage path, the serial result, numpy's check (on the
-    warm run), no kernel launch, nothing uploaded when warm.  Returns the launches of
-    each query's two executes; `results` gets each warm result's
-    columns."""
-    from auron_tpu_torch.frontend.session import AuronSession
-    from auron_tpu_torch.parallel.stage import clear_source_caches
-    session = AuronSession()
-    launches = {}
-    for name, (tables, n_maps, serial, check) in queries.items():
-        root, ctx, sources = session_query(name, tables, n_maps)
-        clear_source_caches()
-        K.reset_launches()
-        warm_bytes = None
-        for run in ("cold", "warm"):
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = session.execute_converted(root, ctx, sources, dev)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            if not res.spmd:
-                raise AssertionError(f"phase 25: {name} fell back to the "
-                                     f"serial path: {res.spmd_rejection}")
-            same_result(f"{name} {run} against its serial result",
-                        res.columns, serial)
-            # numpy's check once, on the warm run: both equal the serial
-            # result, which its phase held to numpy
-            checked = f"{check(res.columns)} equal to numpy" \
-                if run == "warm" else "numpy's check on the warm run"
-            m = res.metrics
-            warm_bytes = m["bytes_uploaded"]
-            print(f"phase 25: {name} {run} stage execute {secs:.4f} s, "
-                  f"{m['host_syncs']} host syncs, {m['bytes_uploaded']} "
-                  f"bytes uploaded ({m['source_cache_hits']} source cache "
-                  f"hits), {m['gathered_rows']} rows gathered, "
-                  f"{res.num_rows} out ({checked}), peak "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-                  f"| {card}")
-        launches[name] = dict(K.LAUNCHES)
-        if results is not None:
-            results[name] = res.columns
-        if warm_bytes != 0 or any(launches[name].values()):
-            raise AssertionError(f"phase 25: {name}: the warm execute "
-                                 f"uploaded {warm_bytes} bytes; launches "
-                                 f"{launches[name]}")
-    return launches
-
-
-def run_session_serial(name, tables, n_maps, serial, dev, K, card: str):
-    """One execute with the stage executor off: the session's serial
-    path.  Returns (launches, serial tasks)."""
+def run_sf10_session(queries, q01_serial, dev, K, card: str):
+    """Phase 27's SF-10 part: each of `queries` ({name: (tables, n_maps,
+    serial out, numpy check)}) from its foreign plan, built by the port's
+    `it/queries.py` over a catalog of its phase's tables (the IT schema's
+    names and types, one chunk a split, `TableEngine` serving the scans),
+    through `AuronSession.execute` once: the stage path, its phase's
+    serial result, numpy's check, no kernel launch.  Then q01 with the
+    stage executor off, on the session's serial path: phase 17's result,
+    both kernels launched, and phase 17's launches where the task counts
+    are equal (`q01_serial`, (tasks, launches)).  Returns the launches of
+    the stage executes and of the serial q01."""
     from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend import converters as C
     from auron_tpu_torch.frontend.session import AuronSession
-    root, ctx, sources = session_query(name, tables, n_maps)
-    K.reset_launches()
-    with conf.scoped({"auron.spmd.singleDevice.enable": False}):
+    from auron_tpu_torch.it import queries as Q
+    from auron_tpu_torch.it.datagen import Catalog, TableDef, TableEngine
+
+    def session(name):
+        tables, n_maps = queries[name][:2]
+        catalog = Catalog("card", {
+            t: TableDef(t, _schema(*FOREIGN_TABLES[name][t]),
+                        [f"{t}/part-{k:05d}"
+                         for k in range(n_maps.get(t, 1))])
+            for t in tables})
+        return AuronSession(foreign_engine=TableEngine(catalog, tables)), \
+            Q.build(name, catalog)
+
+    def execute(name):
+        s, plan = session(name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = AuronSession().execute_converted(root, ctx, sources, dev)
+        res = s.execute(plan, dev)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    if res.spmd:
-        raise AssertionError(f"phase 25: {name} took the stage path with "
-                             f"it off")
-    same_result(f"{name} serial session against its phase", res.columns,
-                serial)
-    launches = dict(K.LAUNCHES)
-    tasks = res.metrics["serial_tasks"]
-    print(f"phase 25: {name} through the session's serial path "
-          f"{secs:.3f} s, {tasks} tasks, {launches['hash_partition_ids_i64']} "
-          f"hash-pid, {launches['radix_bucket_hist']} radix-hist launches "
-          f"| {card}")
-    return launches, tasks
+        return res, time.perf_counter() - t0
 
-
-def profile_stage_query(name, tables, n_maps, dev, card: str) -> None:
-    """Where q01's warm stage execute goes (profile_task), and the host
-    syncs torch's sync debug mode sees in one more warm execute."""
-    from auron_tpu_torch.frontend.session import AuronSession
-    root, ctx, sources = session_query(name, tables, n_maps)
-    session = AuronSession()
-
-    def execute():
-        return session.execute_converted(root, ctx, sources, dev)
-    execute()
-    profile_task(f"phase 25: {name} warm stage execute", execute, card)
-    counted = execute().metrics["host_syncs"]
-    print(f"phase 25: {name} warm stage execute: {count_syncs(execute)} "
-          f"synchronizing operations seen by torch's sync debug mode, "
-          f"{counted} host syncs counted by the executor | {card}")
-
-
-# ---------------------------------------------------------------------------
-# Phase 26: q01, q13a and q65w from their foreign plans
-# ---------------------------------------------------------------------------
-
-# the columns of each phase table, as the IT schema names and types them
-FOREIGN_TABLES = {
-    "q01": {"store_returns": (("sr_customer_sk", "i64"),
-                              ("sr_store_sk", "i64"),
-                              ("sr_return_amt", "f64")),
-            "customer": CUSTOMER},
-    "q13a": {"store_sales": Q13A_SALES, "store": STORE,
-             "date_dim": DATE_YEAR},
-    "q65w": {"store_sales": Q65W_SALES},
-}
-
-
-def foreign_catalog(name, tables, n_maps):
-    """The port's IT catalog over a phase's tables: each table's schema
-    its columns, its chunks `<table>/part-<k>`, one a split (a table of
-    one split, one chunk)."""
-    from auron_tpu_torch.it.datagen import Catalog, TableDef
-    return Catalog("card", {
-        t: TableDef(t, _schema(*FOREIGN_TABLES[name][t]),
-                    [f"{t}/part-{k:05d}" for k in range(n_maps.get(t, 1))])
-        for t in tables})
-
-
-def only_scans_went_foreign(what, res, plan, engine, scans_before):
-    """Phase 26's check that a query ran natively but for its scans: the
-    root converted, the only foreign sections (the JAX package's count,
-    `SessionResult.foreign_sections`) the plan's FileSourceScanExec
-    nodes, each a child-less source the engine served once in this
-    execute (`TableEngine` refuses any other node)."""
-    n_scans = []
-    plan.foreach(lambda n: n_scans.append(1)
-                 if n.op == "FileSourceScanExec" else None)
-    sources = list(res.ctx.sources.values())
-    served = engine.scans - scans_before
-    if type(res.converted).__name__ == "ForeignWrap" or \
-            any(s.node.children or s.node.node.op != "FileSourceScanExec"
-                for s in sources) or \
-            not res.foreign_sections == len(sources) == len(n_scans) == \
-            served:
-        raise AssertionError(
-            f"phase 26: {what}: root {type(res.converted).__name__}, "
-            f"{res.foreign_sections} foreign sections "
-            f"({[s.node.node.op for s in sources]}), {len(n_scans)} scans "
-            f"in the plan, {served} served")
-
-
-def run_foreign_queries(queries, stage_results, dev, K, card: str) -> dict:
-    """Phase 26: each of `queries` ({name: (tables, n_maps, serial out,
-    numpy check)}) built as its foreign plan by the port's
-    `it/queries.py` and run through `AuronSession.execute` twice, cold
-    (the source cache emptied) and warm: the stage path, native but for
-    the scans (`only_scans_went_foreign`), phase 25's result, numpy's check, no kernel launch, nothing uploaded
-    when warm (numpy's check on the warm run).  Returns the launches of
-    each query's two executes."""
-    from auron_tpu_torch.frontend import converters as C
-    from auron_tpu_torch.frontend.session import AuronSession
-    from auron_tpu_torch.it import queries as Q
-    from auron_tpu_torch.it.datagen import TableEngine
-    from auron_tpu_torch.parallel.stage import clear_source_caches
     provider = C.ScanSourceProvider()
     C.register_provider(provider)
-    launches = {}
     try:
-        for name, (tables, n_maps, _, check) in queries.items():
-            catalog = foreign_catalog(name, tables, n_maps)
-            session = AuronSession(foreign_engine=TableEngine(catalog,
-                                                              tables))
-            clear_source_caches()
-            K.reset_launches()
-            warm_bytes = None
-            for run in ("cold", "warm"):
-                plan = Q.build(name, catalog)
-                scans_before = session.foreign_engine.scans
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = session.execute(plan, dev)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                if not res.spmd:
-                    raise AssertionError(
-                        f"phase 26: {name} {run}: off the stage path "
-                        f"({res.spmd_rejection})")
-                only_scans_went_foreign(f"{name} {run}", res, plan,
-                                        session.foreign_engine,
-                                        scans_before)
-                same_result(f"{name} {run} against phase 25", res.columns,
-                            stage_results[name], phase=26)
-                checked = f"{check(res.columns)} equal to numpy" \
-                    if run == "warm" else "numpy's check on the warm run"
-                m = res.metrics
-                warm_bytes = m["bytes_uploaded"]
-                print(f"phase 26: {name} {run} execute {secs:.4f} s, tag "
-                      f"and convert {res.convert_s * 1e3:.3f} ms, "
-                      f"{m['host_syncs']} host syncs, {m['bytes_uploaded']} "
-                      f"bytes uploaded ({m['source_cache_hits']} source "
-                      f"cache hits), {session.foreign_engine.scans} scans "
-                      f"served, {res.num_rows} rows out ({checked}) | {card}")
-            launches[name] = dict(K.LAUNCHES)
-            if warm_bytes != 0 or any(launches[name].values()):
-                raise AssertionError(f"phase 26: {name}: the warm execute "
-                                     f"uploaded {warm_bytes} bytes; "
-                                     f"launches {launches[name]}")
-    finally:
-        C.unregister_provider(provider)
-    return launches
-
-
-def run_foreign_serial(name, tables, n_maps, serial, dev, K, card: str):
-    """Phase 26: the foreign plan once more with the stage executor off,
-    on the session's serial path.  Returns (launches, serial tasks)."""
-    from auron_tpu_torch.config import conf
-    from auron_tpu_torch.frontend import converters as C
-    from auron_tpu_torch.frontend.session import AuronSession
-    from auron_tpu_torch.it import queries as Q
-    from auron_tpu_torch.it.datagen import TableEngine
-    catalog = foreign_catalog(name, tables, n_maps)
-    provider = C.ScanSourceProvider()
-    C.register_provider(provider)
-    K.reset_launches()
-    engine = TableEngine(catalog, tables)
-    plan = Q.build(name, catalog)
-    try:
+        K.reset_launches()
+        for name, (_, _, serial, check) in queries.items():
+            res, secs = execute(name)
+            if not res.spmd:
+                raise AssertionError(f"phase 27: {name} at SF 10 off the "
+                                     f"stage path ({res.spmd_rejection})")
+            same_result(f"{name} at SF 10 against its phase", res.columns,
+                        serial)
+            print(f"phase 27: {name} at SF 10 from its foreign plan on the "
+                  f"stage path {secs:.4f} s (cold), tag and convert "
+                  f"{res.convert_s * 1e3:.3f} ms, {res.num_rows} rows equal "
+                  f"to its phase's serial result and numpy "
+                  f"({check(res.columns)}) | {card}")
+        stage_launches = dict(K.LAUNCHES)
+        if any(stage_launches.values()):
+            raise AssertionError(f"phase 27: the SF-10 stage executes "
+                                 f"launched {stage_launches}")
+        K.reset_launches()
         with conf.scoped({"auron.spmd.singleDevice.enable": False}):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = AuronSession(foreign_engine=engine).execute(plan, dev)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+            res, secs = execute("q01")
     finally:
         C.unregister_provider(provider)
-    if res.spmd:
-        raise AssertionError(f"phase 26: serial {name} took the stage path")
-    only_scans_went_foreign(f"serial {name}", res, plan, engine, 0)
-    same_result(f"{name} serial execute against its phase", res.columns,
-                serial, phase=26)
     launches = dict(K.LAUNCHES)
     tasks = res.metrics["serial_tasks"]
-    print(f"phase 26: {name} from its foreign plan on the serial path "
-          f"{secs:.3f} s, {tasks} tasks, "
+    # the foreign plan converts q01's two `ctr` subtrees to two exchanges,
+    # so its task count may differ from phase 17's
+    if res.spmd or not all(launches.values()) or \
+            (tasks == q01_serial[0] and launches != q01_serial[1]):
+        raise AssertionError(f"phase 27: the serial q01 ran {tasks} tasks "
+                             f"with {launches} (stage path {res.spmd}); "
+                             f"phase 17: {q01_serial}")
+    same_result("the serial q01 against phase 17", res.columns,
+                queries["q01"][2])
+    print(f"phase 27: q01 at SF 10 from its foreign plan on the session's "
+          f"serial path {secs:.3f} s, phase 17's result in {tasks} tasks "
+          f"(phase 17: {q01_serial[0]}), "
           f"{launches['hash_partition_ids_i64']} hash-pid, "
           f"{launches['radix_bucket_hist']} radix-hist launches | {card}")
-    return launches, tasks
+    return stage_launches, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4076,9 +3892,278 @@ def profile_corpus_query(runner, dev, card: str) -> None:
         C.unregister_provider(provider)
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: serial SF-10 tasks under a memory budget
+# ---------------------------------------------------------------------------
+
+SPILL_BUDGET = 32 << 20              # the phase's memory budget, bytes
+SPILL_TRIGGER = 4 << 20              # its auron.memory.spill.min.trigger
+GIANT_BUILD_ROWS = 1 << 20           # the giant-group join's build side
+GIANT_GROUP_ROWS = 1 << 19           # of them under one key
+GIANT_PROBE_ROWS = 1 << 15           # its probe side
+GIANT_PROBE_HITS = 8                 # of them on that key
+GIANT_WINDOW_CAP = 1 << 16           # auron.smj.window.max.rows
+GIANT_PAYLOADS = 7                   # int64 payloads a build row
+
+
+def no_spills(phases: str, card: str) -> None:
+    """Print the memory manager's spills and pool peak over `phases`,
+    which run under the default budget, and fail if one spilled; a
+    fresh manager then counts the next phases."""
+    from auron_tpu_torch.memmgr import manager as M
+    mgr = M.get_manager()
+    print(f"phase{'s' if '-' in phases else ''} {phases}: "
+          f"{mgr.num_spills} spills under the default "
+          f"budget ({mgr.budget} bytes), pool peak {mgr.peak_used} bytes "
+          f"| {card}")
+    if mgr.num_spills:
+        raise AssertionError(f"phases {phases} spilled under the default "
+                             f"budget: {mgr.spill_records()[:3]}")
+    M.reset_manager()
+
+
+def _concat_columns(batches, schema):
+    """Every column's live rows concatenated on the device, as
+    (data, validity) pairs (string columns padded to one width)."""
+    from auron_tpu_torch.columnar.batch import concat_batches
+    b = concat_batches(schema, batches)
+    n = b.num_rows
+    out = []
+    for c in b.columns:
+        out.append((c.data[:n], c.validity[:n]))
+        if c.data.dim() == 2:
+            out.append((c.lengths[:n], c.validity[:n]))
+    return out
+
+
+def _same_tensors(what, got, exp, float_cols=()) -> None:
+    for i, ((gd, gv), (ed, ev)) in enumerate(zip(got, exp)):
+        ok = gd.shape == ed.shape and torch.equal(gv, ev)
+        if ok and i in float_cols:
+            ok = bool(torch.all(torch.isclose(gd, ed, rtol=1e-9, atol=0) |
+                                (gd == ed)))
+        elif ok:
+            ok = torch.equal(gd, ed)
+        if not ok:
+            raise AssertionError(f"phase 28: {what}: column {i} differs "
+                                 f"from the unbudgeted run")
+
+
+def _spill_run(label, run, K, card: str, budgeted: bool):
+    """One run of a spill-phase task: under the phase's budget or the
+    default one.  Prints wall time, spills, spilled bytes, the tier,
+    the manager's pool peak and the device peak; returns (result,
+    manager, launches)."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.memmgr import manager as M
+    kv = {"auron.memory.budget.bytes": SPILL_BUDGET,
+          "auron.memory.spill.min.trigger.bytes": SPILL_TRIGGER} \
+        if budgeted else {}
+    with conf.scoped(kv):
+        mgr = M.reset_manager()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    res = out[0] if isinstance(out, tuple) else out
+    tiers = {t: res.summed(f"mem_spill_{t}") for t in ("host", "file")}
+    by = {n: t["spills"] for n, t in mgr.consumer_totals().items()
+          if t["spills"]}
+    under = f"under a {SPILL_BUDGET}-byte budget" if budgeted else \
+        "under the default budget"
+    print(f"phase 28: {label} {under}: "
+          f"{secs:.3f} s, {mgr.num_spills} spills by the manager {by}, "
+          f"{res.summed('mem_spill_count')} spill writes of "
+          f"{res.summed('mem_spill_size')} bytes (tiers {tiers}), pool "
+          f"peak {mgr.peak_used} bytes, device peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}")
+    M.reset_manager()
+    return out, mgr, dict(K.LAUNCHES)
+
+
+def giant_group_sides(seed: int):
+    """The giant-group join's sides, key-sorted (int64 keys, no nulls):
+    the build side GIANT_BUILD_ROWS rows, GIANT_GROUP_ROWS of them under
+    one key, with a row id and GIANT_PAYLOADS - 1 more int64 payloads;
+    the probe side GIANT_PROBE_ROWS rows, GIANT_PROBE_HITS of them on
+    that key, with a row id."""
+    rng = np.random.default_rng([seed, 28])
+    span = 1 << 24
+    key = span // 2
+    other = rng.integers(0, span, GIANT_BUILD_ROWS - GIANT_GROUP_ROWS)
+    other[other == key] += 1
+    bk = np.sort(np.concatenate([other, np.full(GIANT_GROUP_ROWS, key)]))
+    build = [bk.astype(np.int64), np.arange(GIANT_BUILD_ROWS,
+                                            dtype=np.int64)] + \
+        [rng.integers(-2**62, 2**62, GIANT_BUILD_ROWS)
+         for _ in range(GIANT_PAYLOADS - 1)]
+    pother = rng.integers(0, span, GIANT_PROBE_ROWS - GIANT_PROBE_HITS)
+    pother[pother == key] += 1
+    pk = np.sort(np.concatenate([pother, np.full(GIANT_PROBE_HITS, key)]))
+    probe = [pk.astype(np.int64), np.arange(GIANT_PROBE_ROWS,
+                                            dtype=np.int64)]
+    return build, probe
+
+
+def giant_group_plan():
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    build = _schema(("bk", "i64"), ("bid", "i64"),
+                    *((f"b{j}", "i64") for j in range(GIANT_PAYLOADS - 1)))
+    probe = _schema(("pk", "i64"), ("pid", "i64"))
+    return P.SortMergeJoin(
+        left=P.FFIReader(schema=probe, resource_id="probe"),
+        right=P.FFIReader(schema=build, resource_id="build"),
+        on=P.JoinOn(left_keys=(E.col("pk"),), right_keys=(E.col("bk"),)),
+        join_type="inner")
+
+
+def run_spill_phase(cols, valid, keys, window, dev, K, seed: int,
+                    card: str, shapes: list) -> dict:
+    """Phase 28: four serial SF-10 tasks through `execute_task_bytes`,
+    each under a SPILL_BUDGET budget (SPILL_TRIGGER trigger) and under
+    the default one: (a) phase 3's first map split sorted by the global
+    sort's keys, equal row for row; (b) the same rows grouped by (store,
+    item) of `make_ss_keys`, Sum and Count of the price, keys and counts
+    exact, sums to relative 1e-9; (c) q65w's window task 0 (`window`:
+    plan, task count, stage, and its input blocks held in a host
+    spill), equal; (d) a sort-merge join of
+    a giant group past the window cap, equal as a row multiset to the
+    uncapped join.  Each budgeted run must spill from its operator, and
+    (d) take the escape.  Returns each task's launches."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir import serde
+    from auron_tpu_torch.ir.schema import DataType
+    from auron_tpu_torch.ops.shuffle.writer import (
+        InProcessShuffleService, PartitionedBlocks,
+    )
+    from auron_tpu_torch.runtime.executor import execute_task_bytes
+    from auron_tpu_torch.runtime.resources import ResourceRegistry
+    f64, i64 = DataType.float64(), DataType.int64()
+    started = time.perf_counter()
+    rows = len(cols[0]) // N_MAPS
+
+    def task(plan, inputs):
+        def run():
+            res = ResourceRegistry()
+            for rid, (c, v) in inputs.items():
+                res.put(rid, _scan_batches(c, v, 0, len(c[0])))
+            return execute_task_bytes(serde.serialize(P.TaskDefinition(
+                plan=plan)), res, device=dev)
+        return run
+
+    def spilled(label, mgr, res, consumer):
+        if not (mgr.consumer_totals().get(consumer, {}).get("spills") and
+                res.summed("mem_spill_count")):
+            raise AssertionError(f"phase 28: {label}: {consumer} never "
+                                 f"spilled under the budget")
+
+    launches = {}
+    # (a) the sort
+    ss = _schema(("ss_customer_sk", "i64"), ("ss_quantity", "i32"),
+                 ("ss_sales_price", "f64"))
+    split = ([c[:rows] for c in cols], [v[:rows] for v in valid])
+    sort = P.Sort(child=P.FFIReader(schema=ss, resource_id="ss"),
+                  sort_exprs=(E.SortExpr(child=E.col("ss_sales_price"),
+                                         asc=False, nulls_first=False),
+                              E.SortExpr(child=E.col("ss_customer_sk"),
+                                         asc=True, nulls_first=True)))
+    runs = [_spill_run(f"(a) the sort of {rows} rows", task(sort, {
+        "ss": split}), K, card, b) for b in (True, False)]
+    spilled("(a)", runs[0][1], runs[0][0], "SortExec")
+    _same_tensors("(a) the sort", *[_concat_columns(r[0].batches, ss)
+                                     for r in runs])
+    launches["sort"] = runs[0][2]
+    del runs
+    # (b) the aggregation
+    item_k, store_k, store_v = keys
+    agg_in = _schema(("ss_store_sk", "i64"), ("ss_item_sk", "i64"),
+                     ("ss_sales_price", "f64"))
+    price = E.col("ss_sales_price")
+    agg = P.Agg(child=P.FFIReader(schema=agg_in, resource_id="ss"),
+                exec_mode="single",
+                grouping=(E.col("ss_store_sk"), E.col("ss_item_sk")),
+                grouping_names=("ss_store_sk", "ss_item_sk"),
+                aggs=(E.AggExpr(fn="sum", children=(price,),
+                                return_type=f64),
+                      E.AggExpr(fn="count", children=(price,),
+                                return_type=i64)),
+                agg_names=("revenue", "cnt"))
+    ones = np.ones(rows, bool)
+    runs = [_spill_run(f"(b) the aggregation of {rows} rows", task(agg, {
+        "ss": ([store_k[:rows], item_k[:rows], cols[2][:rows]],
+               [store_v[:rows], ones, valid[2][:rows]])}), K, card, b)
+        for b in (True, False)]
+    spilled("(b)", runs[0][1], runs[0][0], "AggExec")
+    got, exp = [_concat_columns(r[0].batches, runs[1][0].schema)
+                for r in runs]
+    _same_tensors("(b) the aggregation", got, exp, float_cols=(2,))
+    print(f"phase 28: (b) {len(got[0][0])} groups, keys and counts exact, "
+          f"sums within 1e-9 | {card}")
+    launches["agg"] = runs[0][2]
+    del runs, got, exp
+    # (c) q65w's window task 0, its blocks back from host memory
+    plan, n_tasks, stage, held = window
+    rid = "shuffle:q65w:2"
+    registry = ResourceRegistry()
+    registry.put("shuffle:q65w:1",
+                 PartitionedBlocks([list(held.read_batches())]))
+    held.release()
+
+    def window_task():
+        svc = InProcessShuffleService()
+        res = join_stage_task(plan, 0, n_tasks, registry, stage, dev, (),
+                              (svc, rid))
+        return res, [b for p in range(plan.partitioning.num_partitions)
+                     for b in svc.reduce_blocks(rid, p)]
+    with recorded_shapes(K, shapes):
+        runs = [_spill_run("(c) q65w's window task 0", window_task, K, card,
+                           b) for b in (True, False)]
+    spilled("(c)", runs[0][1], runs[0][0][0], "WindowExec")
+    out_schema = runs[1][0][1][0].schema
+    _same_tensors("(c) the window task", *[
+        _concat_columns(r[0][1], out_schema) for r in runs])
+    launches["window"] = runs[0][2]
+    del runs
+    # (d) the giant group
+    build, probe = giant_group_sides(seed)
+    plan = giant_group_plan()
+    inputs = {"build": (build, [np.ones(GIANT_BUILD_ROWS, bool)] *
+                        len(build)),
+              "probe": (probe, [np.ones(GIANT_PROBE_ROWS, bool)] * 2)}
+    runs = []
+    for budgeted, cap in ((True, GIANT_WINDOW_CAP), (False, 0)):
+        with conf.scoped({"auron.smj.window.max.rows": cap}):
+            runs.append(_spill_run(
+                f"(d) the giant-group join (window cap {cap})",
+                task(plan, inputs), K, card, budgeted))
+    spilled("(d)", runs[0][1], runs[0][0], "SortMergeJoinExec")
+    escapes = runs[0][0].metrics.get("giant_group_escapes", 0)
+    if not escapes or runs[1][0].metrics.get("giant_group_escapes", 0):
+        raise AssertionError(f"phase 28: (d) escapes {escapes} capped, "
+                             f"{runs[1][0].metrics} uncapped")
+    outs = []
+    for r in runs:
+        c = _concat_columns(r[0].batches, r[0].schema)
+        # (probe row, build row) identifies an output row
+        order = torch.sort(c[1][0] * GIANT_BUILD_ROWS + c[3][0]).indices
+        outs.append([(d[order], v[order]) for d, v in c])
+    _same_tensors("(d) the giant-group join", *outs)
+    print(f"phase 28: (d) {len(outs[0][0][0])} rows equal the uncapped "
+          f"join's as a multiset, {escapes} giant-group escape | {card}")
+    launches["giant_group"] = runs[0][2]
+    print(f"phase 28: {time.perf_counter() - started:.1f} s | {card}")
+    return launches
+
+
 def check_path_shapes(K, dev, rng, shapes) -> dict:
     """Phase 15, run last: each kernel at each (kernel, rows, n_parts) a
-    path of phases 3-14, 16-18 and 21-24 gave it, held bit-exact against its
+    path of phases 3-14, 16-18, 21-24 and 28 gave it, held bit-exact against its
     plain version on fresh inputs: hash-pid on int64 keys with 10% nulls,
     the histogram at the writer's padded capacity and the writer's sizes
     against torch.bincount.  Returns the largest difference (0) of each
@@ -4113,7 +4198,7 @@ def check_path_shapes(K, dev, rng, shapes) -> dict:
         if err:
             raise AssertionError(f"phase 15: {kernel} != plain at n={n} "
                                  f"n_parts={n_parts}")
-    print(f"phase 15: every kernel shape of phases 3-14, 16-18 and 21-24 "
+    print(f"phase 15: every kernel shape of phases 3-14, 16-18, 21-24 and 28 "
           f"bit-exact "
           f"with its plain version, {len(done)} (kernel, rows, n_parts): "
           f"{sorted(done)}")
@@ -4165,6 +4250,7 @@ def main() -> int:
           f"hash-pid launches = {launches['radix_bucket_hist']} radix-hist "
           f"launches, peak {peak / 2**30:.3f} GiB | {card}")
     del outs, map_results
+    no_spills("3", card)
 
     main_n = written // pushed
     timings = {}
@@ -4251,6 +4337,7 @@ def main() -> int:
     time_reduce_sort(svc, dev, card)
     profile_sort_tasks(cols, valid, svc, plans, dev, card)
     del svc
+    no_spills("4-9", card)
 
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     t = new_phases = time.perf_counter()
@@ -4272,6 +4359,7 @@ def main() -> int:
                                   InProcessShuffleService(), dev, q96_map,
                                   "q96", n_maps=4 * N_MAPS), card)
     del q96_cols, q96_valid, date_sk, date_valid
+    no_spills("10", card)
 
     q88_cols, q88_valid = [cols[1], cols[2]], [valid[1], valid[2]]
     out, q88_launches, path_shapes = run_global_query(
@@ -4284,6 +4372,7 @@ def main() -> int:
                  lambda: map_task(0, q88_cols, q88_valid,
                                   InProcessShuffleService(), dev, q88_map,
                                   "q88c", n_maps=4 * N_MAPS), card)
+    no_spills("11", card)
 
     t = time.perf_counter()
     rcols, rvalid, ridx = make_store_returns(cols, valid, args.seed)
@@ -4304,6 +4393,7 @@ def main() -> int:
                  lambda: map_task(0, rcols, rvalid,
                                   InProcessShuffleService(), dev, s1, "ctr",
                                   "store_returns", N_RETURN_MAPS), card)
+    no_spills("12", card)
     print(f"phases 10-12: {time.perf_counter() - new_phases:.1f} s | {card}")
 
     t = new_phases = time.perf_counter()
@@ -4346,6 +4436,7 @@ def main() -> int:
     check_first_forms(fcols, fvalid, dev, card)
     check_segments_on_card(dev, rng, card)
     del fcols, fvalid
+    no_spills("13", card)
 
     items = max(100, INV_ITEMS * args.rows // SF10_STORE_SALES_ROWS)
     t = time.perf_counter()
@@ -4378,6 +4469,7 @@ def main() -> int:
           f"kept in both months, joined in Python, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
     del q, inventory, months, dates, kept
+    no_spills("14", card)
     print(f"phases 13-14: {time.perf_counter() - new_phases:.1f} s | {card}")
 
     new_phases = time.perf_counter()
@@ -4404,6 +4496,7 @@ def main() -> int:
           f"{check_q41d(out, icols, ivalid)} groups, the null groups first) "
           f"equal to Python's sort | {card}")
     del icols, ivalid
+    no_spills("16", card)
 
     t = time.perf_counter()
     ccols, cvalid = make_customer()
@@ -4435,11 +4528,12 @@ def main() -> int:
           f"join's {len(jcols[0])} rows and the top 100 c_customer_id "
           f"({first} .. {last}) equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    # phase 25 runs q01 again through the session
+    # phase 27 runs q01 again through the session
     stage_inputs = {"q01": (q01_tables, q01_maps, q.out(),
                             lambda out: check_q01_ids(out, jcols))}
     q01_tasks = sum(len(r) for r in q.results.values())
     del q, jvalid, ccols, cvalid, rcols, rvalid
+    no_spills("17", card)
 
     scols, svalid = make_string_keys(args.seed,
                                      min(STRING_KEY_ROWS, args.rows))
@@ -4450,14 +4544,17 @@ def main() -> int:
           f"groups (one null) equal to Python, each in Spark's partition of "
           f"its key | {card}")
     del outs
+    no_spills("18", card)
     print(f"phases 16-18: {time.perf_counter() - new_phases:.1f} s | {card}")
     check_join_types(dev, args.seed, card)
 
     new_phases = time.perf_counter()
     check_join_types(dev, args.seed, card, keys="string")
+    no_spills("19", card)
     check_string_compare(scols, svalid, cols, valid, dev, card)
     check_windows(scols, svalid, cols, valid, dev, card)
     del scols, svalid
+    no_spills("20", card)
     slice9_launches = {}
     t = time.perf_counter()
     rows = args.rows
@@ -4485,6 +4582,7 @@ def main() -> int:
                             functools.partial(check_q13a, ss=ss[0],
                                               ssv=ss[1]))
     del q, ss
+    no_spills("21", card)
     ss = ([item_k, store_k, cols[2], cols[1]],
           [ones, store_v, valid[2], valid[1]])
     q = run_slice9_query("q65w", {"store_sales": ss},
@@ -4507,7 +4605,15 @@ def main() -> int:
                  lambda: q.run_task("shuffle:q65w:2", 0,
                                     InProcessShuffleService(), res), card,
                  batches=len(res.get("shuffle:q65w:1").for_partition(0)))
+    # phase 28 runs window task 0 again: its blocks wait in host memory,
+    # so that phases 23-27's device peaks read as before
+    from auron_tpu_torch.memmgr.spill import HostMemSpill
+    held = HostMemSpill()
+    held.write_batches(q.blocks["shuffle:q65w:1"][0])
+    spill_window = (win, q.tasks(win)[0],
+                    list(q.plans).index("shuffle:q65w:2") + 1, held)
     del q, ss, res
+    no_spills("22", card)
     ss = ([item_k, store_k, cols[1]], [ones, store_v, valid[1]])
     q = run_slice9_query("q27r", {
         "store_sales": ss, "store": store, "item": item_cat},
@@ -4519,6 +4625,7 @@ def main() -> int:
           f"to numpy, {expand_rows} partial rows written, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
     del q, ss
+    no_spills("23", card)
     t = time.perf_counter()
     channels = [([date_sk, item_k, np.round(cols[1] * cols[2], 2)],
                  [date_v, ones, valid[1] & valid[2]]),
@@ -4540,52 +4647,25 @@ def main() -> int:
           f"{check_q33b(q.out(), channels, item_manu[0][1])} manufacturers "
           f"equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    del q, channels, item_k, store_k, store_v, profit, profit_v, date_sk, \
-        date_v
+    del q, channels, profit, profit_v, date_sk, date_v
+    no_spills("24", card)
     print(f"phases 19 (string keys) and 20-24: "
           f"{time.perf_counter() - new_phases:.1f} s | {card}")
 
     new_phases = time.perf_counter()
-    stage_results = {}
-    stage_launches = run_stage_queries(stage_inputs, dev, K, card,
-                                       stage_results)
-    profile_stage_query("q01", q01_tables, q01_maps, dev, card)
-    serial_launches, serial_tasks = run_session_serial(
-        "q01", q01_tables, q01_maps, stage_inputs["q01"][2], dev, K, card)
-    if serial_tasks != q01_tasks or serial_launches != q01_whole_launches:
-        raise AssertionError(
-            f"phase 25: q01's serial session ran {serial_tasks} tasks with "
-            f"{serial_launches}; phase 17 {q01_tasks} with "
-            f"{q01_whole_launches}")
-    print(f"phase 25: q01, q13a and q65w on the stage path equal their "
-          f"serial results and numpy with no kernel launch, the serial "
-          f"session's q01 phase 17's with its {serial_tasks} tasks' "
-          f"launches: {time.perf_counter() - new_phases:.1f} s | {card}")
-
-    new_phases = time.perf_counter()
-    foreign_launches = run_foreign_queries(stage_inputs, stage_results, dev,
-                                           K, card)
-    fserial_launches, fserial_tasks = run_foreign_serial(
-        "q01", q01_tables, q01_maps, stage_inputs["q01"][2], dev, K, card)
-    if fserial_tasks == serial_tasks and fserial_launches != serial_launches:
-        raise AssertionError(
-            f"phase 26: q01's serial execute ran phase 25's {serial_tasks} "
-            f"tasks with {fserial_launches}, phase 25 {serial_launches}")
-    if not all(fserial_launches.values()):
-        raise AssertionError(f"phase 26: q01's serial execute launched "
-                             f"{fserial_launches}")
-    print(f"phase 26: q01, q13a and q65w from their foreign plans through "
-          f"AuronSession.execute equal phase 25 and numpy, native but "
-          f"for their scans on the stage path with no kernel launch; the serial q01 phase "
-          f"17's in {fserial_tasks} tasks (phase 25: {serial_tasks}): "
-          f"{time.perf_counter() - new_phases:.1f} s | {card}")
-    del stage_inputs, q01_tables, jcols, stage_results
-
-    new_phases = time.perf_counter()
+    sf10_launches, serial_launches = run_sf10_session(
+        stage_inputs, (q01_tasks, q01_whole_launches), dev, K, card)
+    del stage_inputs, q01_tables, jcols
     runner, corpus_launches = run_corpus(dev, K, card)
     profile_corpus_query(runner, dev, card)
     del runner
+    no_spills("27", card)
     print(f"phase 27: {time.perf_counter() - new_phases:.1f} s | {card}")
+
+    spill_launches = run_spill_phase(cols, valid, (item_k, store_k, store_v),
+                                     spill_window, dev, K, args.seed, card,
+                                     shapes)
+    del spill_window, item_k, store_k, store_v
 
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
@@ -4612,13 +4692,11 @@ def main() -> int:
             "q01": q01_whole_launches["hash_partition_ids_i64"],
             "string_keys": string_launches["hash_partition_ids_i64"],
             **{q: la["hash_partition_ids_i64"] for q, la in slice9_launches.items()},
-            **{f"{q}_stage": la["hash_partition_ids_i64"]
-               for q, la in stage_launches.items()},
+            "sf10_session_stage": sf10_launches["hash_partition_ids_i64"],
             "q01_session_serial": serial_launches["hash_partition_ids_i64"],
-            **{f"{q}_foreign": la["hash_partition_ids_i64"]
-               for q, la in foreign_launches.items()},
-            "q01_foreign_serial": fserial_launches["hash_partition_ids_i64"],
-            "corpus": corpus_launches["hash_partition_ids_i64"]},
+            "corpus": corpus_launches["hash_partition_ids_i64"],
+            **{f"spill_{t}": la["hash_partition_ids_i64"]
+               for t, la in spill_launches.items()}},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -4640,13 +4718,11 @@ def main() -> int:
             "q01": q01_whole_launches["radix_bucket_hist"],
             "string_keys": string_launches["radix_bucket_hist"],
             **{q: la["radix_bucket_hist"] for q, la in slice9_launches.items()},
-            **{f"{q}_stage": la["radix_bucket_hist"]
-               for q, la in stage_launches.items()},
+            "sf10_session_stage": sf10_launches["radix_bucket_hist"],
             "q01_session_serial": serial_launches["radix_bucket_hist"],
-            **{f"{q}_foreign": la["radix_bucket_hist"]
-               for q, la in foreign_launches.items()},
-            "q01_foreign_serial": fserial_launches["radix_bucket_hist"],
-            "corpus": corpus_launches["radix_bucket_hist"]},
+            "corpus": corpus_launches["radix_bucket_hist"],
+            **{f"spill_{t}": la["radix_bucket_hist"]
+               for t, la in spill_launches.items()}},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

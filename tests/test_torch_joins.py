@@ -21,8 +21,8 @@
   join (-0.0 joins 0.0, NaN joins NaN); the JAX package joins no NaN
   key (ROADMAP Queue 3 item 15).
 - A string join key, which joins as the reference's; NotImplementedError
-  for the `partitioned` probe strategy and the merge's giant-group
-  escape.
+  for the `partitioned` probe strategy; the merge's giant-group escape
+  gives the uncapped join's rows.
 """
 
 import dataclasses
@@ -494,14 +494,16 @@ def test_partitioned_probe_is_refused():
 
 
 def test_giant_group_escape_is_refused():
-    """A merge window past auron.smj.window.max.rows under one key."""
+    """A merge window past auron.smj.window.max.rows under one key is no
+    longer refused: it escapes to the giant-group join, whose 300 x 600
+    pairs are the uncapped join's (tests/test_torch_spill.py holds every
+    join type of the escape to the reference)."""
     ls, rs = _sides()
     one = np.array([7], np.int64)
     left = _records(ls, _side_rows(30, 300, 0, 0.0, key_pool=one), 100)
     right = _records(rs, _side_rows(31, 600, 0, 0.0, key_pool=one), 100)
-    with pytest.raises(NotImplementedError, match="_join_giant_group"):
-        _port_only(join_plan("smj", "inner"), left, right,
-                   {"auron.smj.window.max.rows": 500})
-    # under the cap the same rows join whole: 300 x 600 pairs
-    assert _port_only(join_plan("smj", "inner"), left,
-                      right).num_rows == 180_000
+    capped = _port_only(join_plan("smj", "inner"), left, right,
+                        {"auron.smj.window.max.rows": 500})
+    whole = _port_only(join_plan("smj", "inner"), left, right)
+    assert capped.num_rows == whole.num_rows == 180_000
+    assert compare.compare_tables(capped, whole, ordered=False) is None

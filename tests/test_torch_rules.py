@@ -96,6 +96,13 @@ def test_import_rules_cover_the_intake_modules():
             "auron_tpu_torch/it/queries.py"} <= rel
 
 
+def test_import_rules_cover_the_memory_manager():
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"auron_tpu_torch/memmgr/__init__.py",
+            "auron_tpu_torch/memmgr/manager.py",
+            "auron_tpu_torch/memmgr/spill.py"} <= rel
+
+
 IT_FILES = sorted((ROOT / "auron_tpu_torch" / "it").rglob("*.py"))
 
 
@@ -144,9 +151,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def _session_and_stage_entries(monkeypatch):
-    from auron_tpu_torch.frontend.converters import from_stage_plans
+    from auron_tpu_torch.frontend import converters, strategy
+    from auron_tpu_torch.frontend.foreign import ForeignNode, fcol
     from auron_tpu_torch.frontend.session import AuronSession
-    from auron_tpu_torch.ir import plan as P
     from auron_tpu_torch.ir.schema import DataType, Field, Schema
     from auron_tpu_torch.ops.scan.ipc import SourceTable
     from auron_tpu_torch.parallel.stage import execute_plan_stage
@@ -162,11 +169,18 @@ def _session_and_stage_entries(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pulled = []
+    # the query through the intake: a projection over a local scan, whose
+    # converted reader reads the table the caller passes for its source
     schema = Schema.of(Field("k", DataType.int64()))
-    root, ctx = from_stage_plans({"root": P.FFIReader(
-        schema=schema, resource_id="src")})
-    src = {"src": Counted.from_columns([np.arange(5, dtype=np.int64)],
-                                       [np.ones(5, bool)])}
+    scan = ForeignNode("LocalTableScanExec", output=schema,
+                       attrs={"rows": []})
+    plan = ForeignNode("ProjectExec", children=(scan,), output=schema,
+                       attrs={"project_list": [fcol("k", DataType.int64())]})
+    ctx = converters.ConvertContext()
+    root = converters.convert_recursively(plan, strategy.apply(plan), ctx)
+    [rid] = ctx.sources
+    src = {rid: Counted.from_columns([np.arange(5, dtype=np.int64)],
+                                     [np.ones(5, bool)])}
     for dev in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             AuronSession().execute_converted(root, ctx, src, device=dev)
