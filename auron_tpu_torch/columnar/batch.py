@@ -2,7 +2,9 @@
 auron_tpu/columnar/batch.py).
 
 Two column layouts: `DeviceColumn`, a flat tensor of a type's torch
-dtype, and `DeviceStringColumn`, a string or binary column as a
+dtype (a float32 as float32, a decimal(p <= 18) as its int64 unscaled
+value: `from_numpy` takes the unscaled values, `to_numpy` gives them
+back), and `DeviceStringColumn`, a string or binary column as a
 zero-padded byte matrix `uint8[capacity, width]` with `int32` lengths.
 A string column's width is the smallest `auron.string.width.buckets`
 bucket that holds its longest value, so it differs between batches:
@@ -26,6 +28,7 @@ the live rows `[:num_rows]`, as every consumer here does.
 
 from __future__ import annotations
 
+import decimal
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
@@ -265,6 +268,16 @@ def column_to_numpy(c: Column, n: int) -> np.ndarray:
     out = np.empty(n, dtype=object)
     out[:] = vals
     return out
+
+
+def unscaled_of(value, scale: int) -> int:
+    """A number's unscaled decimal value at `scale`, rounded half up: an
+    int or a `Decimal` exactly, a float through its shortest text (as
+    Spark's `Decimal(double)` reads a double)."""
+    d = decimal.Decimal(repr(value)) if isinstance(value, float) else \
+        decimal.Decimal(value)
+    return int(d.scaleb(scale).to_integral_value(
+        rounding=decimal.ROUND_HALF_UP))
 
 
 def empty_numpy(dtype: DataType) -> np.ndarray:

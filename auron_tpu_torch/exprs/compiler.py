@@ -12,7 +12,14 @@ and Kleene `and`/`or`), `is_null`, `is_not_null`, `not`, `negative`,
   truncates toward zero and the remainder takes the dividend's sign;
 - float comparisons hold NaN equal to NaN and above every number;
 - a date plus or minus an integer is a date, a date minus a date an
-  int32 count of days.
+  int32 count of days;
+- decimals (the int64 unscaled value, p <= 18): `+` and `-` of two
+  decimals of one scale stay decimal on the unscaled values, every other
+  arithmetic op goes through float64 at the value's scale (the JAX
+  package's `_binary_result_type`), a decimal literal's value is exact
+  (`unscaled_literal`), and a decimal beside a decimal or an integer
+  compares exactly (`compare_columns`; the JAX package compares float64
+  values, ROADMAP Queue 3).
 Over string and binary columns (`DeviceStringColumn`): a column
 reference passes its column through, a string literal is a broadcast
 string column (the JAX package's `values.py::literal_column`), built
@@ -38,10 +45,10 @@ import torch
 
 from auron_tpu_torch.columnar.batch import (
     Batch, Column, DeviceColumn, DeviceStringColumn, bucket_width, flat,
-    string_col, string_width,
+    string_col, string_width, unscaled_of,
 )
 from auron_tpu_torch.exprs import functions as F
-from auron_tpu_torch.exprs.cast import cast_column
+from auron_tpu_torch.exprs.cast import cast_column, numeric_data
 from auron_tpu_torch.exprs.strings import string_cmp, string_eq
 from auron_tpu_torch.exprs.typing import (
     CMP_OPS, binary_result_type, infer_type, promote,
@@ -162,9 +169,23 @@ def _eval_literal(e: E.Literal, ctx: EvalCtx) -> Column:
         return DeviceColumn(
             dt, torch.zeros(ctx.capacity, dtype=tdt, device=ctx.device),
             torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device))
+    value = unscaled_literal(e.value, dt.scale) if dt.is_decimal else \
+        e.value
     return DeviceColumn(
-        dt, torch.full((ctx.capacity,), e.value, dtype=tdt,
+        dt, torch.full((ctx.capacity,), value, dtype=tdt,
                        device=ctx.device), ctx.ones())
+
+
+def unscaled_literal(value, scale: int) -> int:
+    """A decimal literal's unscaled value at `scale`: an int is the
+    unscaled value already (the JAX package's convention); a Decimal is
+    taken exactly and a float through its shortest text (Spark's
+    `Decimal(double)`), each rounded half up, as Spark's
+    `changePrecision` rounds (`unscaled_of`).  The JAX package rounds
+    `float(v) * 10^scale` half to even (ROADMAP Queue 3)."""
+    if isinstance(value, int) and not isinstance(value, bool):
+        return value
+    return unscaled_of(value, scale)
 
 
 def _eval_is_null(e: E.IsNull, ctx: EvalCtx) -> DeviceColumn:
@@ -194,10 +215,6 @@ def _eval_cast(e, ctx: EvalCtx) -> DeviceColumn:
                        try_=e.kind == "try_cast")
 
 
-def _as(col: DeviceColumn, t: DataType) -> torch.Tensor:
-    return col.data.to(t.torch_dtype())
-
-
 def compare(op: str, a: torch.Tensor, b: torch.Tensor, t: DataType
             ) -> torch.Tensor:
     """Spark's comparison of two tensors of type t: floats hold NaN equal
@@ -209,6 +226,46 @@ def compare(op: str, a: torch.Tensor, b: torch.Tensor, t: DataType
         lt = (~an & bn) | (both_num & (a < b))
     else:
         eq, lt = a == b, a < b
+    return _by_op(op, eq, lt)
+
+
+def _scaled_eq_lt(a: torch.Tensor, b: torch.Tensor, k: int):
+    """(a * 10^k == b, a * 10^k < b) for int64 a, b and k >= 0, exactly:
+    b = q * 10^k + r with 0 <= r < 10^k, so the product never forms."""
+    if k == 0:
+        return a == b, a < b
+    q = torch.div(b, 10 ** k, rounding_mode="floor")
+    r = b - q * 10 ** k
+    same = a == q
+    return same & (r == 0), (a < q) | (same & (r > 0))
+
+
+def compare_columns(op: str, lc: DeviceColumn, rc: DeviceColumn
+                    ) -> torch.Tensor:
+    """Spark's comparison of two numeric columns.  A decimal beside a
+    decimal or an integral value compares exactly, on the unscaled
+    values brought to one scale, as Spark compares decimals; the JAX
+    package compares them as float64 values, so two decimal(18, s)
+    values a unit apart can compare equal there (ROADMAP Queue 3).  The
+    rest promote (a decimal beside a float: float64)."""
+    lt_, rt_ = lc.dtype, rc.dtype
+    if (lt_.is_decimal or rt_.is_decimal) and \
+            (lt_.is_decimal or lt_.is_integral) and \
+            (rt_.is_decimal or rt_.is_integral):
+        a, b = lc.data.to(torch.int64), rc.data.to(torch.int64)
+        k = (rt_.scale if rt_.is_decimal else 0) - \
+            (lt_.scale if lt_.is_decimal else 0)
+        if k >= 0:
+            eq, lt = _scaled_eq_lt(a, b, k)
+        else:
+            eq, gt = _scaled_eq_lt(b, a, -k)
+            lt = ~gt & ~eq
+        return _by_op(op, eq, lt)
+    t = promote(lt_, rt_)
+    return compare(op, numeric_data(lc, t), numeric_data(rc, t), t)
+
+
+def _by_op(op: str, eq: torch.Tensor, lt: torch.Tensor) -> torch.Tensor:
     if op in ("==", "=", "<=>"):
         return eq
     if op == "!=":
@@ -242,8 +299,7 @@ def _eval_binary(e: E.BinaryExpr, ctx: EvalCtx) -> DeviceColumn:
         return kleene(op, lc, rc)
     both = lc.validity & rc.validity
     if op in CMP_OPS:
-        t = promote(lc.dtype, rc.dtype)
-        data = compare(op, _as(lc, t), _as(rc, t), t)
+        data = compare_columns(op, lc, rc)
         if op == "<=>":     # null-safe equal: never null
             data = torch.where(both, data, ~lc.validity & ~rc.validity)
             return DeviceColumn(DataType.bool_(), data, ctx.ones())
@@ -257,7 +313,7 @@ def _eval_binary(e: E.BinaryExpr, ctx: EvalCtx) -> DeviceColumn:
     t = binary_result_type(op, lc.dtype, rc.dtype)
     if t.id == TypeId.BOOL and op not in ("&", "|", "^"):
         raise TypeError(f"arithmetic {op!r} on bool operands")
-    a, b = _as(lc, t), _as(rc, t)
+    a, b = numeric_data(lc, t), numeric_data(rc, t)
     if op == "+":
         data = a + b
     elif op == "-":
@@ -326,12 +382,12 @@ def _eval_case(e: E.Case, ctx: EvalCtx) -> Column:
     for br in e.branches:
         w, t = evaluate(br.when, ctx), evaluate(br.then, ctx)
         fire = ~decided & w.validity & (w.data != 0)
-        data = torch.where(fire, t.data.to(tdt), data)
+        data = torch.where(fire, numeric_data(t, out_dtype), data)
         valid = torch.where(fire, t.validity, valid)
         decided = decided | fire
     if e.else_expr is not None:
         el = evaluate(e.else_expr, ctx)
-        data = torch.where(decided, data, el.data.to(tdt))
+        data = torch.where(decided, data, numeric_data(el, out_dtype))
         valid = torch.where(decided, valid, el.validity)
     return flat(out_dtype, data, valid)
 
@@ -383,9 +439,7 @@ def _eval_in_list(e: E.InList, ctx: EvalCtx) -> DeviceColumn:
             hit = hit | (string_eq(c, lv) & lv.validity)
         else:
             lv = evaluate(v, ctx)
-            t = promote(c.dtype, lv.dtype)
-            hit = hit | (compare("==", _as(c, t), _as(lv, t), t) &
-                         lv.validity)
+            hit = hit | (compare_columns("==", c, lv) & lv.validity)
         null_in_list = null_in_list | ~lv.validity
     data = ~hit if e.negated else hit
     return flat(DataType.bool_(), data, c.validity & (hit | ~null_in_list))

@@ -10,6 +10,8 @@ every step masks back to 32 bits.  A product of two such words would
 overflow int64; `_mul32` splits the constant into 16-bit halves so every
 intermediate stays below 2^49.  The same code runs on the CPU and the
 card, and is the plain version the hash-pid kernel is held against.
+A decimal(p <= 18) hashes as `hashLong` of its unscaled value, a
+float32 as `hashInt` of its bits (`hash_float32`).
 Strings hash as Spark's `hashUnsafeBytes` (`hash_bytes`), in torch ops
 as the JAX package computes them with jnp ops; no kernel of either
 package computes it.
@@ -91,6 +93,21 @@ def hash_float64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return hash_int64(bits, seed)
 
 
+_CANONICAL_NAN32 = 0x7FC00000
+
+
+def hash_float32(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """hashInt of `Float.floatToIntBits`: -0.0 hashes as 0.0 and every
+    NaN as the canonical NaN 0x7FC00000, as Spark hashes them (the JAX
+    package hashes a NaN's own bits, ROADMAP Queue 3)."""
+    v = v.to(torch.float32)
+    v = torch.where(v == 0.0, torch.zeros((), dtype=v.dtype,
+                                          device=v.device), v)
+    bits = torch.where(torch.isnan(v), _CANONICAL_NAN32,
+                       v.view(torch.int32).to(torch.int64))
+    return hash_int32(bits, seed)
+
+
 def hash_bytes(data: torch.Tensor, lengths: torch.Tensor,
                seed: torch.Tensor) -> torch.Tensor:
     """Spark's hashUnsafeBytes of zero-padded byte rows: data
@@ -130,8 +147,11 @@ def hash_column(col: Column, seed: torch.Tensor) -> torch.Tensor:
     if tid in (TypeId.BOOL, TypeId.INT8, TypeId.INT16, TypeId.INT32,
                TypeId.DATE32):
         h = hash_int32(col.data, seed)
-    elif tid in (TypeId.INT64, TypeId.TIMESTAMP_US):
+    elif tid in (TypeId.INT64, TypeId.TIMESTAMP_US, TypeId.DECIMAL):
+        # a decimal(p <= 18) hashes as hashLong of its unscaled value
         h = hash_int64(col.data, seed)
+    elif tid == TypeId.FLOAT32:
+        h = hash_float32(col.data, seed)
     elif tid == TypeId.FLOAT64:
         h = hash_float64(col.data, seed)
     else:

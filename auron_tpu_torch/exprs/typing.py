@@ -10,7 +10,9 @@ as the JAX package's for the kinds the port evaluates.
 from __future__ import annotations
 
 from auron_tpu_torch.ir import expr as E
-from auron_tpu_torch.ir.schema import DataType, Schema, TypeId
+from auron_tpu_torch.ir.schema import (
+    MAX_DEVICE_DECIMAL_PRECISION, DataType, Schema, TypeId,
+)
 
 CMP_OPS = {"==", "=", "!=", "<", "<=", ">", ">=", "<=>"}
 LOGIC_OPS = {"and", "or"}
@@ -20,6 +22,10 @@ _RANK = {
     TypeId.BOOL: 0, TypeId.INT8: 1, TypeId.INT16: 2, TypeId.INT32: 3,
     TypeId.INT64: 4, TypeId.FLOAT32: 5, TypeId.FLOAT64: 6,
 }
+
+# the scalar functions whose result has their first argument's type
+# where the plan gives no return type
+_KEEPS_ARG_TYPE = {"round", "normalize_nan_and_zero", "check_overflow"}
 
 _BOOL_KINDS = {"is_null", "is_not_null", "not", "sc_and", "sc_or",
                "in_list"}
@@ -43,10 +49,18 @@ def promote(a: DataType, b: DataType) -> DataType:
 
 
 def binary_result_type(op: str, lt: DataType, rt: DataType) -> DataType:
-    """Result type of an arithmetic or bitwise op: `/` of two integral
-    operands gives float64, the rest promote."""
-    if op == "/" and lt.is_integral and rt.is_integral:
+    """Result type of an arithmetic or bitwise op (the JAX package's
+    `_binary_result_type`): `/` of two integral operands or of a decimal
+    gives float64; `+` and `-` of two decimals of one scale stay decimal
+    at that scale, one digit wider up to 18; the rest promote (any other
+    op over a decimal: float64)."""
+    if op == "/" and (lt.is_decimal or rt.is_decimal or
+                      (lt.is_integral and rt.is_integral)):
         return DataType.float64()
+    if op in ("+", "-") and lt.is_decimal and rt.is_decimal and \
+            lt.scale == rt.scale:
+        return DataType.decimal(min(max(lt.precision, rt.precision) + 1,
+                                    MAX_DEVICE_DECIMAL_PRECISION), lt.scale)
     return promote(lt, rt)
 
 
@@ -87,9 +101,14 @@ def infer_type(expr: E.Expr, schema: Schema) -> DataType:
     if k == "scalar_function":
         if expr.return_type.id != TypeId.NULL:
             return expr.return_type
-        # round keeps its argument's type; coalesce takes the first
-        # argument that is not a null literal
-        for a in expr.args[:1] if expr.name == "round" else expr.args:
+        if expr.name == "unscaled_value":
+            return DataType.int64()
+        if expr.name == "make_decimal":
+            return DataType.decimal(MAX_DEVICE_DECIMAL_PRECISION, 0)
+        # round and normalize_nan_and_zero keep their argument's type;
+        # coalesce takes the first argument that is not a null literal
+        for a in expr.args[:1] if expr.name in _KEEPS_ARG_TYPE \
+                else expr.args:
             t = infer_type(a, schema)
             if t.id != TypeId.NULL:
                 return t

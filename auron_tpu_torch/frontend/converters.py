@@ -34,7 +34,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.frontend import expr_convert as EC
-from auron_tpu_torch.frontend.expr_convert import NotConvertible
+from auron_tpu_torch.frontend.expr_convert import (
+    WIDE_DECIMAL, NotConvertible,
+)
 from auron_tpu_torch.frontend.foreign import ForeignExpr, ForeignNode
 from auron_tpu_torch.ir import expr as E
 from auron_tpu_torch.ir import plan as P
@@ -690,7 +692,14 @@ class ScanSourceProvider(ConvertProvider):
 
 def convert_node(node: ForeignNode, native_children: List[P.PlanNode],
                  ctx: ConvertContext) -> P.PlanNode:
-    """Strict single-node conversion given native children."""
+    """Strict single-node conversion given native children.  A node
+    whose output or input holds a decimal of more than 18 digits stays
+    foreign: the JAX package keeps such a column on the host, which the
+    port has not yet."""
+    for schema in [node.output] + [c.output for c in node.children]:
+        for f in (schema or ()):
+            if f.dtype.is_wide_decimal:
+                raise NotConvertible(WIDE_DECIMAL.format(f.dtype))
     for p in _EXT_PROVIDERS:
         if p.is_supported(node):
             return p.convert(node, native_children, ctx)

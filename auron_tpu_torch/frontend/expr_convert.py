@@ -7,7 +7,9 @@ emitting the port's `ir/expr.py` kinds with the same JSON.  Where the
 JAX package emits a kind the port's IR lacks (`_MISSING`), the port
 raises `NotConvertible` naming the kind and its ROADMAP item, so the
 convert strategy leaves the node to the foreign engine, as it does with
-anything else it cannot convert.  That includes the partial fallback
+anything else it cannot convert.  So does an expression typed
+decimal(p > 18), a host column in the JAX package (ROADMAP Queue 1 item
+11).  That includes the partial fallback
 into the Python UDF wrapper (`PyUdfWrapper`, the JAX package's
 counterpart of Spark's `SparkUDFWrapperExpr`), and the UDAF fallback.
 """
@@ -27,8 +29,17 @@ class NotConvertible(Exception):
     """Raised when a foreign expression/plan has no native conversion."""
 
 
+WIDE_DECIMAL = ("{!r} is host-resident in the JAX package; host columns "
+                "are not in auron_tpu_torch yet (ROADMAP Queue 1 item 11)")
+
+
 def _dt(fe: ForeignExpr) -> DataType:
-    return fe.dtype if fe.dtype is not None else DataType.null()
+    """The expression's type; NotConvertible for a decimal of more than
+    18 digits, which has no device layout in the port."""
+    dt = fe.dtype if fe.dtype is not None else DataType.null()
+    if dt.is_wide_decimal:
+        raise NotConvertible(WIDE_DECIMAL.format(dt))
+    return dt
 
 
 # the JAX package's IR kinds the port's IR lacks, with their ROADMAP items

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import decimal
 import math
 from typing import Any, ClassVar, Dict, Type
 
@@ -44,6 +45,9 @@ def _encode(v: Any) -> Any:
         return [_encode(x) for x in v]
     if isinstance(v, bytes):
         return {"@bytes": base64.b64encode(v).decode("ascii")}
+    if isinstance(v, decimal.Decimal):
+        # a decimal literal's value, exact, as its string
+        return {"@decimal": str(v)}
     if isinstance(v, float) and (math.isnan(v) or math.isinf(v)):
         # JSON has no inf/nan literal; tag them
         if math.isnan(v):
@@ -78,8 +82,7 @@ def _decode(v: Any) -> Any:
                 raise ValueError(f"bad @float tag {v['@float']!r}")
             return _SPECIAL_FLOATS[v["@float"]]
         if "@decimal" in v:
-            raise NotImplementedError(
-                "decimal literals are not in auron_tpu_torch yet")
+            return decimal.Decimal(v["@decimal"])
         return {k: _decode(x) for k, x in v.items()}
     if isinstance(v, list):
         return tuple(_decode(x) for x in v)

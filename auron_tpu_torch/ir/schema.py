@@ -3,11 +3,14 @@ auron_tpu/ir/schema.py).
 
 The full `TypeId` enum is kept so that every type name on the wire
 decodes.  The port's device layer handles the flat types it maps to a
-torch dtype (`torch_dtype`): bool, int8/16/32/64, float64, date32 as
-int32 days and timestamp as int64 microseconds, the JAX package's
-physical types; and string and binary, whose device layout is the
-padded byte matrix of columnar/batch.py (`DeviceStringColumn`), so they
-have no torch dtype of their own.
+torch dtype (`torch_dtype`): bool, int8/16/32/64, float32, float64,
+decimal(p <= 18, s) as the int64 unscaled value, date32 as int32 days
+and timestamp as int64 microseconds, the JAX package's physical types;
+and string and binary, whose device layout is the padded byte matrix of
+columnar/batch.py (`DeviceStringColumn`), so they have no torch dtype of
+their own.  A decimal wider than 18 digits lives on the host in the JAX
+package (`HostColumn`), which the port has not yet (ROADMAP Queue 1
+item 11): its `torch_dtype` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,13 +43,18 @@ class TypeId(enum.IntEnum):
 
 _INTEGRAL = {TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64}
 
+# the widest decimal whose unscaled value fits an int64
+MAX_DEVICE_DECIMAL_PRECISION = 18
+
 _TORCH_DTYPES = {
     TypeId.BOOL: torch.bool,
     TypeId.INT8: torch.int8,
     TypeId.INT16: torch.int16,
     TypeId.INT32: torch.int32,
     TypeId.INT64: torch.int64,
+    TypeId.FLOAT32: torch.float32,
     TypeId.FLOAT64: torch.float64,
+    TypeId.DECIMAL: torch.int64,        # the unscaled value, p <= 18
     TypeId.DATE32: torch.int32,
     TypeId.TIMESTAMP_US: torch.int64,
 }
@@ -105,12 +113,23 @@ class DataType:
     @property
     def is_decimal(self) -> bool: return self.id == TypeId.DECIMAL
     @property
+    def is_wide_decimal(self) -> bool:
+        """A decimal past 18 digits: no int64 holds its unscaled value."""
+        return self.id == TypeId.DECIMAL and \
+            self.precision > MAX_DEVICE_DECIMAL_PRECISION
+    @property
     def is_stringlike(self) -> bool:
         return self.id in (TypeId.STRING, TypeId.BINARY)
 
     def torch_dtype(self) -> torch.dtype:
         """The device dtype of a flat column of this type (a string type
-        raises: its column is a byte matrix and lengths)."""
+        raises: its column is a byte matrix and lengths; so does a
+        decimal of more than 18 digits, a host column)."""
+        if self.is_wide_decimal:
+            raise NotImplementedError(
+                f"{self!r} is host-resident in the JAX package; host "
+                f"columns are not in auron_tpu_torch yet (ROADMAP Queue 1 "
+                f"item 11)")
         if self.id not in _TORCH_DTYPES:
             raise TypeError(f"type {self!r} has no device layout in "
                             f"auron_tpu_torch yet")
@@ -124,7 +143,7 @@ class DataType:
 
 def is_flat_type(dtype: DataType) -> bool:
     """Whether a column of this type has a flat device layout here."""
-    return dtype.id in _TORCH_DTYPES
+    return dtype.id in _TORCH_DTYPES and not dtype.is_wide_decimal
 
 
 @dataclass(frozen=True)

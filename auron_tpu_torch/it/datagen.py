@@ -703,7 +703,8 @@ class TableEngine:
     `FilterExec` above the scan applies them.  A repeated scan (the same
     columns and file groups) gets the same `SourceTable` object, since
     the stage executor's source cache keys tables by identity.  `scans`
-    counts the scans served."""
+    counts the scans served.  A table's arrays are its columns' device
+    layout: a decimal(p <= 18) column is its int64 unscaled values."""
 
     def __init__(self, catalog: Catalog, tables: Tables):
         self.catalog, self.tables = catalog, tables

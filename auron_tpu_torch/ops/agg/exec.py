@@ -8,14 +8,15 @@ equal-key runs (`keys_equal_prev`), number the segments, and reduce every
 agg state over the segments.  The grouped batches are staged and merged,
 `_MERGE_FANIN` at a time, with the same reduction over partial states.
 Every key type the encoder holds groups: bool, int8/16/32/64, date32,
-timestamp, float64, string and binary.  Null keys form one group (nulls
+timestamp, float32, float64, decimal(p <= 18) (by its unscaled value),
+string and binary.  Null keys form one group (nulls
 first).  A string key's words depend on its column's width, so every
 batch the operator reduces holds its rows at one width: the staged
 merges concatenate at the widest part (`concat_batches`), and so does
 the reduce side, one batch at a time.  A group's string key comes out
 at the width of the batch that formed it.  Over string inputs only
 Count runs; string Min, Max and First are host aggregates in the JAX
-package and are not ported.  Float64
+package and are not ported.  Float64 and float32
 keys group as Spark's `NormalizeFloatingNumbers` leaves them: -0.0 with
 0.0 and every NaN together, and the key comes out normalized (0.0, the
 positive quiet NaN); the JAX package's words keep -0.0 apart from 0.0
@@ -54,8 +55,9 @@ from auron_tpu_torch.columnar.batch import (
 )
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs.compiler import build_evaluator
+from auron_tpu_torch.exprs.typing import infer_type
 from auron_tpu_torch.ir.expr import AggExpr
-from auron_tpu_torch.ir.schema import Field, Schema, TypeId
+from auron_tpu_torch.ir.schema import DataType, Field, Schema, TypeId
 from auron_tpu_torch.ops.agg.functions import AggSpec, make_spec
 from auron_tpu_torch.ops.base import Operator, StagingOperator, TaskContext
 from auron_tpu_torch.ops.sort_keys import (
@@ -77,8 +79,10 @@ class AggExec(StagingOperator):
         in_schema = child.schema
         self.exec_mode = exec_mode
         self.nk = len(grouping)
-        self.specs: List[AggSpec] = [make_spec(a.fn, a.return_type, n)
-                                     for a, n in zip(aggs, agg_names)]
+        self.specs: List[AggSpec] = [
+            make_spec(a.fn, a.return_type, n,
+                      _sum_dtype(a, n, exec_mode, in_schema))
+            for a, n in zip(aggs, agg_names)]
         self._key_eval = build_evaluator(grouping, in_schema)
         for t in self._key_eval.out_types:
             value_bits(t)          # raises for a type it cannot encode
@@ -306,9 +310,21 @@ def group_reduce(keys: List[Column],
     return out, n_groups, cap
 
 
+def _sum_dtype(a: AggExpr, name: str, exec_mode: str, in_schema: Schema
+               ) -> DataType:
+    """A decimal average's sum state type: its input's type, read from
+    the state column in final mode (whose children name the partial
+    stage's input)."""
+    if a.fn != "avg" or not a.return_type.is_decimal:
+        return DataType.float64()
+    if exec_mode == "final":
+        return in_schema.field(f"{name}#sum").dtype
+    return infer_type(a.children[0], in_schema)
+
+
 def _group_key(k: Column) -> Column:
-    """A group's key as Spark emits it: a float64 key normalized."""
-    if k.dtype.id != TypeId.FLOAT64:
+    """A group's key as Spark emits it: a float key normalized."""
+    if k.dtype.id not in (TypeId.FLOAT64, TypeId.FLOAT32):
         return k
     return DeviceColumn(k.dtype, normalize_f64(k.data), k.validity)
 

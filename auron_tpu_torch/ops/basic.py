@@ -15,6 +15,7 @@ from auron_tpu_torch.columnar.batch import (
     concat_batches, null_column,
 )
 from auron_tpu_torch.config import conf
+from auron_tpu_torch.exprs.cast import numeric_data
 from auron_tpu_torch.exprs.compiler import build_evaluator, build_predicate
 from auron_tpu_torch.ir.schema import DataType, Field, Schema
 from auron_tpu_torch.ops.base import Operator, TaskContext, compact_indices
@@ -123,15 +124,15 @@ class UnionExec(Operator):
 
 
 def _conform(col: Column, dtype: DataType) -> Column:
-    """A projection's column as the declared type: a flat column cast to
-    its torch dtype, a null of no type as an all-null string column."""
+    """A projection's column as the declared type: a flat column in the
+    representation of its type (`numeric_data`: a decimal rescaled), a
+    null of no type as an all-null string column."""
     if dtype.is_stringlike:
         if isinstance(col, DeviceStringColumn):
             return col
         return null_column(dtype, col.capacity, col.validity.device)
     if isinstance(col, DeviceColumn) and col.dtype != dtype:
-        return DeviceColumn(dtype, col.data.to(dtype.torch_dtype()),
-                            col.validity)
+        return DeviceColumn(dtype, numeric_data(col, dtype), col.validity)
     return col
 
 

@@ -17,9 +17,11 @@ order is then unsigned order, and both sentinels (`NULL_BUILD` =
 murmur3 pass is masked to 32 bits before the shift.
 
 Float keys follow Spark (`NormalizeFloatingNumbers`): -0.0 joins 0.0
-and a NaN joins every NaN.  The port's `hash_float64` hashes -0.0 as 0.0
-and every NaN as the canonical NaN, and `verify_pairs` holds two NaNs
-equal.  The JAX package hashes a NaN's own bits and compares with `==`,
+and a NaN joins every NaN.  The port's `hash_float64` and
+`hash_float32` hash -0.0 as 0.0 and every NaN as the canonical NaN, and
+`verify_pairs` holds two NaNs equal.  A decimal(p <= 18) key hashes and
+compares as its unscaled int64 (both sides of one type, as Spark casts
+them).  The JAX package hashes a NaN's own bits and compares with `==`,
 so no NaN key matches there (ROADMAP Queue 3).
 
 String keys hash as Spark's `hashUnsafeBytes` (`hash_bytes`, over the
@@ -39,7 +41,7 @@ from auron_tpu_torch.columnar.batch import (
 )
 from auron_tpu_torch.exprs.hashing import hash_column
 from auron_tpu_torch.exprs.strings import string_eq
-from auron_tpu_torch.ir.schema import Schema, TypeId
+from auron_tpu_torch.ir.schema import Schema
 from auron_tpu_torch.ops.radix_sort import SIGN64, radix_sort_indices
 from auron_tpu_torch.ops.strategy import join_probe_strategy, sort_strategy
 
@@ -123,7 +125,7 @@ def _keys_equal(p: Column, b: Column) -> torch.Tensor:
     if isinstance(p, DeviceStringColumn):
         return string_eq(p, b)
     eq = p.data == b.data
-    if p.dtype.id == TypeId.FLOAT64:
+    if p.dtype.is_floating:
         eq = eq | (torch.isnan(p.data) & torch.isnan(b.data))
     return eq
 

@@ -24,7 +24,9 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from auron_tpu_torch.columnar.batch import Batch, empty_numpy, from_numpy
+from auron_tpu_torch.columnar.batch import (
+    Batch, empty_numpy, from_numpy, unscaled_of,
+)
 from auron_tpu_torch.ir.schema import Schema, TypeId
 from auron_tpu_torch.ops.base import Operator, TaskContext
 
@@ -70,6 +72,8 @@ _EPOCH = datetime.datetime(1970, 1, 1)
 
 
 def _row_value(v, dtype):
+    if dtype.is_decimal:
+        return unscaled_of(v, dtype.scale)
     if dtype.id == TypeId.DATE32 and isinstance(v, datetime.date):
         return (v - _EPOCH_DAY).days
     if dtype.id == TypeId.TIMESTAMP_US and isinstance(v, datetime.datetime):
@@ -120,6 +124,8 @@ class SourceTable:
         """One partition of a `LocalTableScanExec`'s rows (dicts by
         column name, a missing or None value null), each column in its
         device layout: a date as int32 days (`datetime.date` or an int),
+        a decimal as its unscaled int64 (`unscaled_of` of a `Decimal`, an
+        int or a float value),
         a timestamp as int64 microseconds (`datetime.datetime`, naive as
         UTC, or an int), a string or binary column as an object array."""
         arrays, validities = [], []
@@ -165,7 +171,9 @@ def arrow_to_numpy(rb):
     """(arrays, validities) of a pyarrow RecordBatch, nulls as zeros,
     each column as the integers or floats of its device layout (as the
     JAX package's `Batch.from_arrow` imports them): date32 as int32
-    days, a timestamp as int64 microseconds, bool as bool; a string or
+    days, a timestamp as int64 microseconds, a decimal(p <= 18) as its
+    int64 unscaled value (a wider one as an object array of `Decimal`s,
+    which no device column takes), bool as bool; a string or
     binary column as an object array of `str` or `bytes`, None where
     null."""
     import pyarrow as pa
@@ -181,6 +189,19 @@ def arrow_to_numpy(rb):
             vals = np.empty(len(col), dtype=object)
             vals[:] = col.to_pylist()
             arrays.append(vals)
+            continue
+        if pa.types.is_decimal(t) and t.precision > 18:
+            # host values (a `Decimal` each): no device layout here
+            vals = np.empty(len(col), dtype=object)
+            vals[:] = col.to_pylist()
+            arrays.append(vals)
+            continue
+        if pa.types.is_decimal(t):
+            # decimal128's 16-byte little-endian words: a value of at most
+            # 18 digits is its low int64, sign-extended
+            words = np.frombuffer(col.buffers()[1], dtype=np.int64)
+            lo = words[2 * col.offset:2 * (col.offset + len(col)):2]
+            arrays.append(np.where(validities[-1], lo, 0))
             continue
         if pa.types.is_date32(t):
             col = col.cast(pa.int32())

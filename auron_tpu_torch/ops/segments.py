@@ -9,8 +9,8 @@ in no fixed order, so float sums match other engines to a tolerance, not
 bit for bit.  Integer sums are exact (and wrap on overflow, as the JAX
 package's do); minima and maxima are exact.
 
-Float64 minima and maxima reduce over the order-preserving int64 word of
-ops/sort_keys.py and are decoded afterwards, which gives Spark's order:
+Float64 and float32 minima and maxima reduce over the order-preserving
+int64 word of ops/sort_keys.py and are decoded afterwards, which gives Spark's order:
 every NaN equal and above +inf, -0.0 equal to 0.0.  A NaN or a zero that
 wins comes out normalized (the positive quiet NaN, 0.0).  The JAX
 package's `jnp.minimum` scan propagates NaN instead, so its min of
@@ -21,7 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.ops.sort_keys import f64_from_word, f64_word
+from auron_tpu_torch.ops.sort_keys import (
+    f32_from_word, f32_word, f64_from_word, f64_word,
+)
+
+# a float dtype's order-preserving word and its inverse
+FLOAT_WORDS = {torch.float64: (f64_word, f64_from_word),
+                torch.float32: (f32_word, f32_from_word)}
 
 
 def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
@@ -35,7 +41,7 @@ def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
 def _extreme(x: torch.Tensor, seg: torch.Tensor, num_segments: int,
              is_min: bool) -> torch.Tensor:
     """out[s] = min (max) of x over segment s; an empty segment holds the
-    type's identity: +inf / -inf for float64, the integer type's maximum
+    type's identity: +inf / -inf for a float, the integer type's maximum
     / minimum, true / false for bool.  The rows reduce among themselves
     only (include_self is False), so a float segment of NaNs alone gives
     NaN, not the identity."""
@@ -43,12 +49,13 @@ def _extreme(x: torch.Tensor, seg: torch.Tensor, num_segments: int,
     if x.dtype == torch.bool:          # false < true, as Spark orders
         return _extreme(x.to(torch.uint8), seg, num_segments,
                         is_min).to(torch.bool)
-    if x.dtype == torch.float64:
+    if x.dtype in FLOAT_WORDS:
+        word, from_word = FLOAT_WORDS[x.dtype]
         ident = torch.full((num_segments,), float("inf") if is_min
-                           else float("-inf"), dtype=torch.float64,
+                           else float("-inf"), dtype=x.dtype,
                            device=x.device)
-        return f64_from_word(f64_word(ident).scatter_reduce_(
-            0, seg, f64_word(x), op, include_self=False))
+        return from_word(word(ident).scatter_reduce_(
+            0, seg, word(x), op, include_self=False))
     info = torch.iinfo(x.dtype)
     out = torch.full((num_segments,), info.max if is_min else info.min,
                      dtype=x.dtype, device=x.device)

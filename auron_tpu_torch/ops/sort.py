@@ -238,9 +238,15 @@ def _np_encode_key(vals: np.ndarray, mask: np.ndarray, dtype: DataType,
         x = np.where(np.isnan(x), np.nan, x)
         b = x.view(np.int64)
         w = np.where(b >= 0, b, b ^ np.int64(F64_NEG_FLIP))
+    elif dtype.id == TypeId.FLOAT32:
+        x = np.asarray(vals, np.float32)
+        x = np.where(x == 0.0, np.float32(0.0), x)
+        x = np.where(np.isnan(x), np.float32(np.nan), x)
+        b = x.view(np.uint32).astype(np.int64)
+        w = np.where(b < (1 << 31), b ^ (1 << 31), b ^ np.int64(MASK32))
     elif dtype.id in NARROW_INTS:
         w = np.asarray(vals).astype(np.int64) + (1 << 31)
-    else:
+    else:       # bool, int64, timestamp, decimal (its unscaled value)
         w = np.asarray(vals).astype(np.int64)
     if not asc:
         w = ~w if nbits == 64 else w ^ np.int64(MASK32)

@@ -8,22 +8,25 @@ word list.
 Word representation.  torch has no uint64 comparison or sort, so every
 word is an int64 tensor:
 - a u32 word (a claim of at most 32 bits: null rank, bool, int8/16/32,
-  date32) is held as its non-negative value;
-- a u64 word (a claim of 64 bits: int64, timestamp, float64, each 8
-  bytes of a string) is held as `u ^ 2^63`, so that signed order is
-  unsigned order.
+  date32, float32) is held as its non-negative value;
+- a u64 word (a claim of 64 bits: int64, timestamp, decimal(p <= 18)
+  as its unscaled value, float64, each 8 bytes of a string) is held as
+  `u ^ 2^63`, so that signed order is unsigned order.
 A string or binary column of width W gives ceil(W / 8) words, its bytes
 big-endian 8 at a time (zero-padded), then its length as a u32 word:
 Spark's binary order, where a proper prefix sorts first and `"ab"`
 before `"ab\\x00"`.  The words depend on the width, so the rows they
 compare must be at one width (`concat_batches` pads every part to the
 widest).
-The words are the JAX package's words in this representation, with one
-difference, for float64: Spark compares -0.0 equal to 0.0 and puts every
-NaN after +inf, all NaNs equal.  The JAX encoder orders -0.0 before 0.0
-and a NaN with its sign bit set before -inf; the port normalises -0.0 to
-0.0 and every NaN to the positive quiet NaN before encoding, which gives
-Spark's order (ROADMAP Queue 3).
+The words are the JAX package's words in this representation, with two
+differences.  For float64 and float32: Spark compares -0.0 equal to 0.0
+and puts every NaN after +inf, all NaNs equal.  The JAX encoder orders
+-0.0 before 0.0 and a NaN with its sign bit set before -inf; the port
+normalises -0.0 to 0.0 and every NaN to the positive quiet NaN before
+encoding, which gives Spark's order (ROADMAP Queue 3).  A float32 key
+is one u32 word of its orderable bits, where the JAX package's
+`_orderable_u64_from_f32` puts the same 32 bits in the high half of a
+u64 word: the order is the same.
 
 The JAX package's `auron.sort.f64.exactbits` (an exact float64 encoding
 for backends that demote float64) and `auron.sort.multipass.enable`
@@ -59,10 +62,11 @@ def value_bits(dtype: DataType) -> int:
     encode yet."""
     if dtype.id == TypeId.BOOL:
         return 1
-    if dtype.id in NARROW_INTS:
+    if dtype.id in NARROW_INTS or dtype.id == TypeId.FLOAT32:
         return 32
     if dtype.id in WIDE_INTS or dtype.id == TypeId.FLOAT64 or \
-            dtype.is_stringlike:
+            dtype.is_stringlike or \
+            (dtype.is_decimal and not dtype.is_wide_decimal):
         return 64
     raise NotImplementedError(
         f"sort keys of type {dtype!r} are not in auron_tpu_torch yet")
@@ -85,6 +89,22 @@ def f64_word(x: torch.Tensor) -> torch.Tensor:
 def f64_from_word(w: torch.Tensor) -> torch.Tensor:
     """Inverse of `f64_word` on its image: the (normalized) float64."""
     return torch.where(w >= 0, w, w ^ F64_NEG_FLIP).view(torch.float64)
+
+
+def f32_word(x: torch.Tensor) -> torch.Tensor:
+    """The order-preserving u32 word (in int64) of a float32, normalized
+    first: the bits with the sign flipped for a non-negative value, all
+    flipped for a negative one (`_orderable_u64_from_f32`'s high word)."""
+    b = normalize_f64(x).to(torch.float32).view(torch.int32) \
+        .to(torch.int64) & MASK32
+    return torch.where(b < (1 << 31), b ^ (1 << 31), b ^ MASK32)
+
+
+def f32_from_word(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of `f32_word` on its image: the (normalized) float32."""
+    b = torch.where(w >= (1 << 31), w ^ (1 << 31), w ^ MASK32)
+    return torch.where(b >= (1 << 31), b - (1 << 32), b) \
+        .to(torch.int32).view(torch.float32)
 
 
 def string_words(col: DeviceStringColumn) -> List[torch.Tensor]:
@@ -116,9 +136,11 @@ def encode_key_column(col: Column, asc: bool = True,
     nbits = value_bits(col.dtype)
     if tid == TypeId.FLOAT64:
         w = f64_word(col.data)
+    elif tid == TypeId.FLOAT32:
+        w = f32_word(col.data)
     elif tid in NARROW_INTS:
         w = col.data.to(torch.int64) + (1 << 31)
-    else:   # bool, int64, timestamp
+    else:   # bool, int64, timestamp, decimal
         w = col.data.to(torch.int64)
     if not asc:
         w = ~w if nbits == 64 else w ^ MASK32

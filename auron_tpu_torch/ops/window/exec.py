@@ -22,8 +22,18 @@ start, which loses a small partition's digits after a large one.
 Integer running sums are that prefix difference, exact (and wrapping)
 as the JAX package's.
 
+Decimal(p <= 18) and float32 values: count, sum, avg, min and max take
+both.  A decimal sums its unscaled values in int64, null past the
+result's precision, and its average is Spark's decimal(p + 4, s + 4),
+the unscaled sum over the count rounded half up
+(`ops/agg/functions.py::decimal_average`); a float32's sum and average
+are float64; min and max keep the input's type, a float32 over its
+ordered words as a float64 is.
+
 Where the port keeps Spark's semantics and the JAX package does not
 (ROADMAP Queue 3):
+- the average of a decimal, which the JAX package divides as the
+  unscaled float64 sum and returns as float64;
 - the running float sum, above;
 - the running min and max over NaN (the JAX package's `jnp.minimum`
   gives NaN);
@@ -63,8 +73,10 @@ from auron_tpu_torch.ops.base import (
     Operator, StagingOperator, TaskContext, compact_indices,
 )
 from auron_tpu_torch.ops.sort import _rechunk
+from auron_tpu_torch.exprs.cast import fits_digits, numeric_data
+from auron_tpu_torch.ops.agg.functions import decimal_average
 from auron_tpu_torch.ops.sort_keys import (
-    encode_sort_keys, encode_sort_keys_bits, f64_from_word, f64_word,
+    encode_sort_keys, encode_sort_keys_bits,
     keys_equal_prev, lexsort_indices,
 )
 
@@ -358,10 +370,14 @@ def _agg_over_window(wf: WindowFuncCall, args: List[Column], c: Ctx,
         x = (val.validity if agg.children else live).to(torch.int64)
         return flat(DataType.int64(), total_or_running(x), live)
     has = (total_or_running(val.validity.to(torch.int64)) > 0) & live
+    rt = agg.return_type
     if agg.fn in ("sum", "avg"):
-        fl = agg.return_type.is_floating or agg.fn == "avg"
+        # a decimal sums its unscaled ints; a float result sums values
+        fl = rt.is_floating or (agg.fn == "avg" and not rt.is_decimal)
         acc = torch.float64 if fl else torch.int64
-        x = torch.where(val.validity, val.data.to(acc),
+        x = numeric_data(val, DataType.float64()) if fl else \
+            val.data.to(acc)
+        x = torch.where(val.validity, x,
                         torch.zeros((), dtype=acc, device=live.device))
         if running and fl:
             s = frame(_seg_scan(x, c, torch.add))
@@ -369,18 +385,22 @@ def _agg_over_window(wf: WindowFuncCall, args: List[Column], c: Ctx,
             s = total_or_running(x)
         if agg.fn == "avg":
             cnt = total_or_running(val.validity.to(torch.int64))
+            if rt.is_decimal:
+                out = decimal_average(s, cnt, val.dtype.scale, rt)
+                return flat(rt, out.data, out.validity & has)
             return flat(DataType.float64(), s / torch.clamp(cnt, min=1),
                         has)
-        return flat(agg.return_type, s.to(agg.return_type.torch_dtype()),
-                    has)
+        if rt.is_decimal:
+            has = has & fits_digits(s, rt.precision)
+        return flat(rt, s.to(rt.torch_dtype()), has)
     # min / max
     is_min = agg.fn == "min"
     x = val.data
-    is_f64 = x.dtype == torch.float64
+    words = segments.FLOAT_WORDS.get(x.dtype)
     if x.dtype == torch.bool:
         x = x.to(torch.uint8)
-    if is_f64:
-        x = f64_word(x)
+    if words is not None:
+        x = words[0](x)
     info = torch.iinfo(x.dtype)
     neutral = torch.tensor(info.max if is_min else info.min, dtype=x.dtype,
                            device=x.device)
@@ -393,8 +413,8 @@ def _agg_over_window(wf: WindowFuncCall, args: List[Column], c: Ctx,
             if is_min else \
             segments.sorted_segment_max(x, c["seg_id"], c["cap"])
         out = red[c["seg_id"]]
-    if is_f64:
-        out = f64_from_word(out)
+    if words is not None:
+        out = words[1](out)
     return flat(val.dtype, out.to(val.data.dtype), has)
 
 

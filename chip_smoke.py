@@ -47,7 +47,8 @@ the sources in this checkout.  Phases, each fatal on failure:
    all-zero words at 524288) against its plain version, its memory
    bound, `torch.bincount` and the launch floor, and a reduce task's
    sort under both strategies (pack-sort and multipass);
-9. profile one sort map task and one sort reduce task;
+9. profile the first sixteenth of one sort map task and one sort
+   reduce task;
 10. run TPC-DS q96 whole through `execute_task_bytes` as the JAX
     package's converter lowers it: 8 map tasks (FFIReader -> Filter
     ss_quantity >= 20 AND ss_sales_price < 120.0 -> partial count ->
@@ -80,8 +81,9 @@ the sources in this checkout.  Phases, each fatal on failure:
     Sort fetch 100 -> single), 1 task (Sort fetch 100 -> Projection);
     check that the join's rows number one per store_returns row, the 100
     rows against numpy, the histogram on every writer batch and hash-pid
-    on every batch of the one-key exchange; profile one sort-merge join
-    task; then a group-by of 2^20 rows by a float64 key holding -0.0,
+    on every batch of the one-key exchange (no task is profiled: a
+    sort-merge join task's trace took 37-57 s to read); then a group-by
+    of 2^20 rows by a float64 key holding -0.0,
     0.0, +-inf and NaNs of both signs and several payloads (Count, Min,
     Max, first_ignores_null of a float64 value) through hash(4),
     checked against numpy under Spark's normalization; First and
@@ -99,8 +101,8 @@ the sources in this checkout.  Phases, each fatal on failure:
     groups joined in Python, the histogram on every writer batch and no
     hash-pid (two keys); print the seconds phases 13-14 took;
 15. (run last) hold each kernel bit-exact against its plain version at
-    every (rows, n_parts) the writers of phases 3-14, 16-18, 21-24 and 28
-    gave it, as their metrics report them;
+    every (rows, n_parts) the writers of phases 3-14, 16-18, 21-24, 28
+    and 29 gave it, as their metrics report them;
 16. run TPC-DS q09c and q41d whole as the converter lowers them, with
     string columns on the card: q09c over the store_sales rows (8 map
     tasks: Projection of a nested CASE into the string band "1-20",
@@ -209,10 +211,28 @@ the sources in this checkout.  Phases, each fatal on failure:
     multiset to the same join uncapped and unbudgeted.  Each budgeted run
     must spill from its operator and (d) take the giant-group escape;
     print each run's wall time, spills, spilled bytes and tier, the
-    memory manager's pool peak and `torch.cuda.max_memory_allocated`.
-Every phase from 3 to 27 runs under the default memory budget: after
-each the memory manager's spill count is printed, and a spill fails the
-script.
+    memory manager's pool peak and `torch.cuda.max_memory_allocated`;
+29. float32 and decimal(p <= 18) columns: (a) phase 3's first map split
+    (3,600,123 rows) with ss_sales_price as decimal(7,2) (its cents, the
+    int64 unscaled value), three stage pairs through `execute_task_bytes`
+    into 16 partitions: group by ss_customer_sk with Sum (decimal(17,2))
+    and Average (decimal(11,6)) of the price and Min and Max of
+    CheckOverflow(Cast(qty as decimal(10,0)) * price, decimal(18,2));
+    group by the price itself, Count and Sum of the quantity, the hash
+    exchange on the single decimal key through the hash-pid kernel; a
+    global sort by the price DESC NULLS LAST, a range exchange by
+    Spark-sampled `Decimal` bounds; each exact against numpy's integers,
+    the histogram on every writer batch and hash-pid on every batch of
+    the two one-key hash exchanges; (b) 2^20 rows of a float32 key and
+    value (+-0.0, NaNs of four patterns, +-inf, subnormals): a two-phase
+    group-by (Min, Max, Sum, Average, Count) through hash(4) and a global
+    sort by the key, checked against numpy under Spark's rules; (c) (a)'s
+    group by customer from its foreign plan through
+    `AuronSession.execute` (`TableEngine` serving the scan): the stage
+    path, no launch, equal to (a).
+Every phase from 3 to 27, and 29, runs under the default memory budget:
+after each the memory manager's spill count is printed, and a spill
+fails the script.
 It prints the card's line and one JSON line describing each kernel, then,
 as the last line, {"ok": true, "device": {...}}.
 """
@@ -351,13 +371,21 @@ def _writer(child, mode: str, n_parts: int, exprs=(), **partitioning):
         rss_resource_id="shuffle_writer")
 
 
+def _dtype(t: str):
+    """The DataType of "i32" | "i64" | "f32" | "f64" | "str" | "dec(p,s)"."""
+    from auron_tpu_torch.ir.schema import DataType
+    if t.startswith("dec("):
+        p, s = t[4:-1].split(",")
+        return DataType.decimal(int(p), int(s))
+    return {"i32": DataType.int32(), "i64": DataType.int64(),
+            "f32": DataType.float32(), "f64": DataType.float64(),
+            "str": DataType.string()}[t]
+
+
 def _schema(*fields):
-    """A Schema of (name, "i32" | "i64" | "f64" | "str"[, nullable])
-    fields."""
-    from auron_tpu_torch.ir.schema import DataType, Field, Schema
-    types = {"i32": DataType.int32(), "i64": DataType.int64(),
-             "f64": DataType.float64(), "str": DataType.string()}
-    return Schema.of(*(Field(n, types[t], nullable=nullable)
+    """A Schema of (name, type as `_dtype` names it[, nullable]) fields."""
+    from auron_tpu_torch.ir.schema import Field, Schema
+    return Schema.of(*(Field(n, _dtype(t), nullable=nullable)
                        for n, t, nullable in
                        ((f + (True,))[:3] for f in fields)))
 
@@ -971,14 +999,14 @@ def time_reduce_sort(svc, dev, card: str):
 
 
 def profile_sort_tasks(cols, valid, svc, plans, dev, card: str) -> None:
-    """Phase 9: an eighth of sort map task 0 (the first of 64 splits:
+    """Phase 9: a sixteenth of sort map task 0 (the first of 128 splits:
     reading a whole task's trace took 112-168 s on an H100, a quarter's
-    41-48 s) and one sort reduce task."""
+    41-48 s, an eighth's 16-22 s) and one sort reduce task."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     scratch = InProcessShuffleService()
-    profile_task("phase 9: sort map task 0, its first eighth",
+    profile_task("phase 9: sort map task 0, its first sixteenth",
                  lambda: map_task(0, cols, valid, scratch, dev, plans[0],
-                                  "sort", n_maps=8 * N_MAPS), card)
+                                  "sort", n_maps=16 * N_MAPS), card)
     profile_task("phase 9: sort reduce task 0",
                  lambda: sort_reduce_task(0, svc, plans[1], dev), card)
 
@@ -4161,9 +4189,545 @@ def run_spill_phase(cols, valid, keys, window, dev, K, seed: int,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: float32 and decimal(p <= 18) columns
+# ---------------------------------------------------------------------------
+
+DECIMAL_PARTS = 16                   # the phase's exchanges (reduce tasks)
+DECIMAL_SALES = (("ss_customer_sk", "i64"), ("ss_quantity", "i32"),
+                 ("ss_sales_price", "dec(7,2)"))  # TPC-DS's money type
+AVG_SHIFT = 4                        # avg(decimal(7,2)) is decimal(11,6)
+F32_ROWS = 1 << 20
+F32_KEY_VALUES = 1_000
+N_F32_MAPS = 4
+# float32 bit patterns: -0.0, 0.0, +inf, -inf, the quiet NaN, its
+# negative, a quiet NaN with a payload, a signalling NaN, the least
+# subnormal and the largest negative one
+SPECIAL_F32_BITS = (0x80000000, 0, 0x7F800000, 0xFF800000, 0x7FC00000,
+                    0xFFC00000, 0x7FC00001, 0x7F800123, 0x00000001,
+                    0x807FFFFF)
+CANONICAL_NAN32_BITS = 0x7FC00000
+NULL_KEY = np.iinfo(np.int64).min    # no key's value: the null group
+
+
+def decimal_sales(cols, valid, rows: int):
+    """Phase 3's first `rows` rows with ss_sales_price as decimal(7,2):
+    its cents, the int64 unscaled value."""
+    cents = np.round(cols[2][:rows] * 100).astype(np.int64)
+    return [cols[0][:rows], cols[1][:rows], cents], [v[:rows] for v in valid]
+
+
+DECIMAL_AGGS = {
+    # name, function, input, Spark's result type
+    "customer": (("s", "sum", "price", "dec(17,2)"),
+                 ("m", "avg", "price", "dec(11,6)"),
+                 ("lo", "min", "amt", "dec(18,2)"),
+                 ("hi", "max", "amt", "dec(18,2)")),
+    "price": (("n", "count", "ss_quantity", "i64"),
+              ("q", "sum", "ss_quantity", "i64")),
+}
+DECIMAL_STATES = {
+    "customer": (("ss_customer_sk", "i64"), ("s#sum", "dec(17,2)"),
+                 ("m#sum", "dec(7,2)"), ("m#count", "i64", False),
+                 ("lo#min", "dec(18,2)"), ("hi#max", "dec(18,2)")),
+    "price": (("ss_sales_price", "dec(7,2)"), ("n#count", "i64", False),
+              ("q#sum", "i64")),
+}
+
+
+def decimal_plans(kind: str, bounds=()):
+    """(map plan, reduce plan) of one of phase 29's decimal stage pairs
+    over DECIMAL_SALES, with Spark's result types.  "customer": group by
+    ss_customer_sk, Sum and Average of the price and Min and Max of
+    CheckOverflow(Cast(qty as decimal(10,0)) * price, decimal(18,2)),
+    the product as Spark's converter writes it.  "price": group by the
+    price (the single-decimal-key exchange), Count and Sum of the
+    quantity.  "sort": a range exchange by the price's `bounds`, then
+    Sort by the price DESC NULLS LAST."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    src = P.FFIReader(schema=_schema(*DECIMAL_SALES),
+                      resource_id="store_sales")
+    price = E.col("ss_sales_price")
+    if kind == "sort":
+        names = tuple(n for n, _ in DECIMAL_SALES)
+        order = (E.SortExpr(child=price, asc=False, nulls_first=False),)
+        return (_writer(P.Projection(child=src, exprs=tuple(
+                    E.col(n) for n in names), names=names),
+                    "range", DECIMAL_PARTS, sort_orders=order,
+                    range_bounds=bounds),
+                P.Sort(child=P.IpcReader(schema=_schema(*DECIMAL_SALES),
+                                         resource_id="shuffle_read"),
+                       sort_exprs=order))
+    child = src
+    if kind == "customer":
+        amt = E.ScalarFunctionCall(
+            name="check_overflow", return_type=_dtype("dec(18,2)"),
+            args=(E.BinaryExpr(left=E.Cast(child=E.col("ss_quantity"),
+                                           dtype=_dtype("dec(10,0)")),
+                               op="*", right=price),))
+        child = P.Projection(child=src, exprs=(E.col("ss_customer_sk"),
+                                               price, amt),
+                             names=("ss_customer_sk", "price", "amt"))
+    states = DECIMAL_STATES[kind]
+    key = (E.col(states[0][0]),)
+    aggs = tuple(E.AggExpr(fn=f, children=(E.col(c),),
+                           return_type=_dtype(t))
+                 for _, f, c, t in DECIMAL_AGGS[kind])
+    names = tuple(a[0] for a in DECIMAL_AGGS[kind])
+
+    def agg(c, mode):
+        return P.Agg(child=c, exec_mode=mode, grouping=key,
+                     grouping_names=(states[0][0],), aggs=aggs,
+                     agg_names=names)
+    reader = P.IpcReader(schema=_schema(*states),
+                         resource_id="shuffle_read")
+    return (_writer(agg(child, "partial"), "hash", DECIMAL_PARTS, key),
+            agg(reader, "final"))
+
+
+def run_phase29_pair(name: str, plans, cols, valid, source: str,
+                     n_maps: int, dev, K, hash_pid: bool,
+                     scan_batch: int = 0):
+    """n_maps map tasks of `plans` over the rows into the writer's
+    partitions, then a reduce task each; checks that the histogram ran on
+    every writer batch, and hash-pid too where `hash_pid` (one int64 or
+    decimal key); -> (the reduce outputs concatenated in partition
+    order, the map stage's launches, its kernel shapes, its batches, the
+    seconds)."""
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    mplan, rplan = plans
+    svc = InProcessShuffleService()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    maps, _, blocks = run_shuffle_stage(
+        mplan, svc, name, n_maps,
+        lambda m: map_task(m, cols, valid, svc, dev, mplan, name, source,
+                           n_maps))
+    launches = dict(K.LAUNCHES)
+    pushed, shapes = check_stage(f"phase 29: {name} map", launches, maps,
+                                 len(blocks), hash_pid=hash_pid,
+                                 scan_batch=scan_batch)
+    outs = [reduce_task(rplan, blocks, 2, p, dev).to_numpy()
+            for p in range(len(blocks))]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = {c: tuple(np.concatenate([o[c][i] for o in outs]) for i in (0, 1))
+           for c in outs[0]}
+    return out, launches, shapes, pushed, secs
+
+
+def _keyed(out, key: str):
+    """A grouped output's columns sorted by `key` (null first), and the
+    keys (null as NULL_KEY); each key once."""
+    kd, kv = out[key]
+    k = np.where(kv, kd, NULL_KEY).astype(np.int64)
+    order = np.argsort(k, kind="stable")
+    if len(np.unique(k)) != len(k):
+        raise AssertionError(f"phase 29: a {key} group appears twice")
+    return {c: (d[order], v[order]) for c, (d, v) in out.items()}, k[order]
+
+
+def _same_groups(what, got, exp) -> None:
+    """Exact equality of {column: (data, validity)} against numpy's
+    {column: (values, has)}."""
+    for c, (e, has) in exp.items():
+        d, v = got[c]
+        if not (np.array_equal(v, has) and np.array_equal(d[v], e[has])):
+            raise AssertionError(f"phase 29: {what}: column {c} differs "
+                                 f"from numpy")
+
+
+def check_decimal_customer(out, dcols, dvalid) -> int:
+    """Group by customer: the unscaled Sum, the Average rounded half up at
+    scale 6, Min and Max of quantity x cents, each against numpy's
+    integers.  Returns the groups."""
+    sk, qty, cents = dcols
+    skv, qv, pv = dvalid
+    uk, gid = np.unique(np.where(skv, sk, NULL_KEY), return_inverse=True)
+    got, keys = _keyed(out, "ss_customer_sk")
+    if not np.array_equal(keys, uk):
+        raise AssertionError(f"phase 29: {len(keys)} customer groups, "
+                             f"numpy {len(uk)}")
+    g = len(uk)
+    # float64 sums of integers below 2^53 are exact
+    s = np.bincount(gid[pv], weights=cents[pv], minlength=g).astype(np.int64)
+    cnt = np.bincount(gid[pv], minlength=g)
+    half_up = (2 * np.abs(s) * 10 ** AVG_SHIFT + cnt) // np.maximum(2 * cnt,
+                                                                    1)
+    both = pv & qv
+    amt = qty.astype(np.int64) * cents
+    lo = np.full(g, np.iinfo(np.int64).max)
+    hi = np.full(g, np.iinfo(np.int64).min)
+    np.minimum.at(lo, gid[both], amt[both])
+    np.maximum.at(hi, gid[both], amt[both])
+    has_amt = np.bincount(gid[both], minlength=g) > 0
+    _same_groups("group by customer", got, {
+        "s": (s, cnt > 0), "m": (np.sign(s) * half_up, cnt > 0),
+        "lo": (lo, has_amt), "hi": (hi, has_amt)})
+    return g
+
+
+def check_decimal_price(out, dcols, dvalid) -> int:
+    """Group by the decimal price: Count and Sum of the quantity."""
+    _, qty, cents = dcols
+    _, qv, pv = dvalid
+    uk, gid = np.unique(np.where(pv, cents, NULL_KEY), return_inverse=True)
+    got, keys = _keyed(out, "ss_sales_price")
+    if not np.array_equal(keys, uk):
+        raise AssertionError(f"phase 29: {len(keys)} price groups, numpy "
+                             f"{len(uk)}")
+    g = len(uk)
+    cnt = np.bincount(gid[qv], minlength=g)
+    q = np.bincount(gid[qv], weights=qty[qv], minlength=g).astype(np.int64)
+    _same_groups("group by price", got, {
+        "n": (cnt, np.ones(g, bool)), "q": (q, cnt > 0)})
+    return g
+
+
+def _rows_sorted(cols, valid):
+    """The rows as a multiset: each column's (validity, value) in one
+    lexicographic order."""
+    keys = []
+    for c, v in zip(cols, valid):
+        keys += [np.where(v, c, 0), v]
+    order = np.lexsort(keys[::-1])
+    return [k[order] for k in keys]
+
+
+def check_decimal_sort(out, dcols, dvalid) -> int:
+    """The partitions in id order hold the prices in descending order,
+    nulls last, and the rows are the input's."""
+    names = [n for n, _ in DECIMAL_SALES]
+    d, v = out["ss_sales_price"]
+    pv = dvalid[2]
+    exp = -np.sort(-dcols[2][pv])
+    n_valid = int(pv.sum())
+    if not (len(d) == len(pv) and v[:n_valid].all() and
+            not v[n_valid:].any() and np.array_equal(d[:n_valid], exp)):
+        raise AssertionError("phase 29: the decimal sort's prices are not "
+                             "in Spark's order")
+    got = _rows_sorted([out[n][0] for n in names], [out[n][1] for n in names])
+    want = _rows_sorted(dcols, dvalid)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("phase 29: the decimal sort's rows differ from "
+                             "the input's")
+    return len(d)
+
+
+def decimal_foreign_plan(catalog):
+    """Phase 29 (a)(1) as a foreign plan (the port's `frontend.foreign`
+    nodes, Spark's operator names): the scan, the Projection of the key,
+    the price and the CheckOverflow product, the partial
+    HashAggregateExec, the hash exchange, the final one."""
+    from auron_tpu_torch.frontend.foreign import (
+        ForeignNode, falias, fcall, fcol,
+    )
+    from auron_tpu_torch.it.queries import agg
+    t = _dtype
+    price = fcol("ss_sales_price", t("dec(7,2)"))
+    amt = fcall("CheckOverflow", fcall(
+        "Multiply", fcall("Cast", fcol("ss_quantity", t("i32")),
+                          dtype=t("dec(10,0)")),
+        price, dtype=t("dec(18,2)")), dtype=t("dec(18,2)"))
+    key = fcol("ss_customer_sk", t("i64"))
+    proj = ForeignNode(
+        "ProjectExec", children=(catalog.scan("store_sales"),),
+        output=_schema(("ss_customer_sk", "i64"), ("price", "dec(7,2)"),
+                       ("amt", "dec(18,2)")),
+        attrs={"project_list": [key, falias(price, "price"),
+                                falias(amt, "amt")]})
+    fn_names = {"sum": "Sum", "avg": "Average", "min": "Min", "max": "Max"}
+    aggs = [agg(fn_names[f], fcol(c, proj.output.field(c).dtype), t(rt))
+            for _, f, c, rt in DECIMAL_AGGS["customer"]]
+    names = [a[0] for a in DECIMAL_AGGS["customer"]]
+    states = _schema(*DECIMAL_STATES["customer"])
+    partial = ForeignNode(
+        "HashAggregateExec", children=(proj,), output=states,
+        attrs={"grouping": [key], "aggs": aggs, "agg_names": names,
+               "mode": "partial"})
+    exchange = ForeignNode(
+        "ShuffleExchangeExec", children=(partial,), output=states,
+        attrs={"partitioning": {"mode": "hash",
+                                "num_partitions": DECIMAL_PARTS,
+                                "expressions": [key]}})
+    out = _schema(("ss_customer_sk", "i64"), *(
+        (n, rt) for n, _, _, rt in DECIMAL_AGGS["customer"]))
+    return ForeignNode(
+        "HashAggregateExec", children=(exchange,), output=out,
+        attrs={"grouping": [key], "aggs": aggs, "agg_names": names,
+               "mode": "final"})
+
+
+def run_decimal_session(dcols, dvalid, serial, dev, K, card: str) -> dict:
+    """Phase 29 (c): (a)(1) from its foreign plan through the port's
+    `AuronSession.execute`, `TableEngine` serving the scan of the split's
+    columns (the price as its unscaled cents): on the stage path, no
+    kernel launched, equal to the serial stage pair's groups.  Returns
+    the launches."""
+    from auron_tpu_torch.frontend import converters as C
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.it.datagen import Catalog, TableDef, TableEngine
+    catalog = Catalog("card", {"store_sales": TableDef(
+        "store_sales", _schema(*DECIMAL_SALES), ["store_sales/part-00000"])})
+    session = AuronSession(foreign_engine=TableEngine(
+        catalog, {"store_sales": (dcols, dvalid)}))
+    provider = C.ScanSourceProvider()
+    C.register_provider(provider)
+    try:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = session.execute(decimal_foreign_plan(catalog), dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        C.unregister_provider(provider)
+    launches = dict(K.LAUNCHES)
+    if not res.spmd or res.metrics.get("num_fallbacks"):
+        raise AssertionError(f"phase 29: the decimal foreign plan ran off "
+                             f"the stage path ({res.spmd_rejection})")
+    if any(launches.values()):
+        raise AssertionError(f"phase 29: the stage execute launched "
+                             f"{launches}")
+    got, keys = _keyed(res.columns, "ss_customer_sk")
+    want, wkeys = _keyed(serial, "ss_customer_sk")
+    if not np.array_equal(keys, wkeys):
+        raise AssertionError("phase 29: the session's customer groups "
+                             "differ from the stage pair's")
+    _same_groups("the session against the stage pair", got,
+                 {c: (want[c][0], want[c][1]) for c in ("s", "m", "lo",
+                                                        "hi")})
+    print(f"phase 29: (c) the group by customer from its foreign plan on "
+          f"the stage path {secs:.3f} s (cold), tag and convert "
+          f"{res.convert_s * 1e3:.3f} ms, its {len(keys)} groups equal to "
+          f"(a)(1), no launch | {card}")
+    return launches
+
+
+def make_f32_keys(seed: int, n: int = F32_ROWS):
+    """n rows of a float32 key drawn from F32_KEY_VALUES values (the
+    patterns of SPECIAL_F32_BITS among them) and a float32 value drawn
+    from the special patterns and 50 numbers, each column with
+    NULL_FRACTION nulls."""
+    rng = np.random.default_rng([seed, 32])
+    special = np.array(SPECIAL_F32_BITS, np.uint32).view(np.float32)
+    keys = np.concatenate([special, np.round(rng.normal(
+        size=F32_KEY_VALUES - len(special)) * 1e3, 1).astype(np.float32)])
+    vals = np.concatenate([special, rng.normal(size=50).astype(np.float32)])
+    return ([rng.choice(keys, n), rng.choice(vals, n)],
+            [rng.random(n) >= NULL_FRACTION for _ in range(2)])
+
+
+F32_AGGS = (("a0", "min", "f32"), ("a1", "max", "f32"),
+            ("a2", "sum", "f64"), ("a3", "avg", "f64"),
+            ("a4", "count", "i64"))
+
+
+def f32_plans(kind: str, bounds=()):
+    """(map plan, reduce plan) over (k, v) float32: "group", partial Min,
+    Max, Sum, Average and Count of v by k -> hash(4) on k -> final; "sort",
+    a range exchange by k's `bounds` -> Sort by k."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    schema = _schema(("k", "f32"), ("v", "f32"))
+    src = P.FFIReader(schema=schema, resource_id="floats32")
+    key = (E.col("k"),)
+    if kind == "sort":
+        order = (E.SortExpr(child=E.col("k"), asc=True, nulls_first=True),)
+        return (_writer(P.Projection(child=src, exprs=(E.col("k"),
+                                                       E.col("v")),
+                                     names=("k", "v")),
+                        "range", DECIMAL_PARTS, sort_orders=order,
+                        range_bounds=bounds),
+                P.Sort(child=P.IpcReader(schema=schema,
+                                         resource_id="shuffle_read"),
+                       sort_exprs=order))
+    aggs = tuple(E.AggExpr(fn=f, children=(E.col("v"),),
+                           return_type=_dtype(t)) for _, f, t in F32_AGGS)
+    names = tuple(a[0] for a in F32_AGGS)
+
+    def agg(c, mode):
+        return P.Agg(child=c, exec_mode=mode, grouping=key,
+                     grouping_names=("k",), aggs=aggs, agg_names=names)
+    states = _schema(("k", "f32"), ("a0#min", "f32"), ("a1#max", "f32"),
+                     ("a2#sum", "f64"), ("a3#sum", "f64"),
+                     ("a3#count", "i64", False), ("a4#count", "i64", False))
+    return (_writer(agg(src, "partial"), "hash", N_AGG_PARTS, key),
+            agg(P.IpcReader(schema=states, resource_id="shuffle_read"),
+                "final"))
+
+
+def _f32_group(k, kv):
+    """int64 group ids of float32 keys under Spark's normalization (-0.0
+    as 0.0, every NaN as one, null a group of its own)."""
+    kn = np.where(k == 0, np.float32(0), k)
+    kn = np.where(np.isnan(kn), np.float32(np.nan), kn)
+    return np.where(kv, kn.view(np.uint32).astype(np.int64), 1 << 32)
+
+
+def _f32_order(k, kv):
+    """An int64 word a row that orders float32 keys as Spark does (nulls
+    first, -0.0 equal to 0.0, NaN above +inf)."""
+    b = _f32_group(k, kv)
+    word = np.where(b < (1 << 31), b ^ (1 << 31), b ^ 0xFFFFFFFF)
+    return np.where(kv, word + 1, 0)
+
+
+def check_f32_group(out, fcols, fvalid) -> int:
+    """One group per normalized key, the keys normalized; Count exact, Min
+    and Max as Spark orders floats (normalized), Sum and Average in
+    float64 to relative 1e-9 (another summation order), infinities and
+    NaNs where numpy has them.  Returns the groups."""
+    k, v = fcols
+    kv, vv = fvalid
+    uk, gid = np.unique(_f32_group(k, kv), return_inverse=True)
+    g = len(uk)
+    gk, gkv = out["k"]
+    got_key = _f32_group(gk, gkv)
+    order = np.argsort(got_key)
+    bits = gk.view(np.uint32)
+    if not np.array_equal(got_key[order], uk) or \
+            np.any(gkv & (bits == 0x80000000)) or \
+            np.any(gkv & np.isnan(gk) & (bits != CANONICAL_NAN32_BITS)):
+        raise AssertionError(f"phase 29: {len(gk)} float32 groups (numpy "
+                             f"{g}) or a key unnormalized")
+    with np.errstate(invalid="ignore"):     # a signalling NaN widened
+        v64 = v.astype(np.float64)
+    emn, emx, has = _spark_extremes(gid, g, v64, vv)
+    cnt = np.bincount(gid, weights=vv, minlength=g).astype(np.int64)
+    s = np.bincount(gid[vv], weights=v64[vv], minlength=g)
+    for name, exp in (("a0", emn), ("a1", emx)):
+        d, dv = (x[order] for x in out[name])
+        b = d[dv].view(np.uint32)
+        if not (np.array_equal(dv, has) and
+                np.array_equal(np.isnan(d[dv]), np.isnan(exp[has])) and
+                np.array_equal(d[dv][~np.isnan(d[dv])],
+                               exp[has][~np.isnan(exp[has])]) and
+                not np.any(b == 0x80000000) and
+                np.all(b[np.isnan(d[dv])] == CANONICAL_NAN32_BITS)):
+            raise AssertionError(f"phase 29: float32 {name} differs from "
+                                 f"Spark's order")
+    for name, exp in (("a2", s), ("a3", s / np.maximum(cnt, 1))):
+        d, dv = (x[order] for x in out[name])
+        if not (np.array_equal(dv, cnt > 0) and np.allclose(
+                d[dv], exp[cnt > 0], rtol=1e-9, atol=0, equal_nan=True)):
+            raise AssertionError(f"phase 29: float32 {name} differs from "
+                                 f"numpy")
+    if not np.array_equal(out["a4"][0][order], cnt):
+        raise AssertionError("phase 29: float32 counts differ from numpy")
+    return g
+
+
+def check_f32_sort(out, fcols, fvalid) -> int:
+    """The partitions in id order hold the keys in Spark's order, and the
+    rows are the input's (as bits)."""
+    d, v = out["k"]
+    word = _f32_order(d, v)
+    if len(d) != len(fcols[0]) or np.any(word[1:] < word[:-1]):
+        raise AssertionError("phase 29: the float32 sort is not in Spark's "
+                             "order")
+    got = _rows_sorted([out["k"][0].view(np.uint32),
+                        out["v"][0].view(np.uint32)],
+                       [out["k"][1], out["v"][1]])
+    want = _rows_sorted([c.view(np.uint32) for c in fcols], fvalid)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("phase 29: the float32 sort's rows differ "
+                             "from the input's")
+    return len(d)
+
+
+def run_phase29(cols, valid, dev, K, seed: int, card: str,
+                shapes: list) -> dict:
+    """Phase 29: float32 and decimal(p <= 18) columns on the card.  (a)
+    the first map split's rows with the price as decimal(7,2), three
+    stage pairs through `execute_task_bytes` (group by customer, group by
+    the price on the hash-pid kernel, the global sort by the price)
+    against numpy's integers; (b) a group-by and a global sort of 2^20
+    float32 keys under Spark's rules; (c) (a)(1) from its foreign plan
+    through the session's stage path.  Adds the writers' kernel shapes to
+    `shapes`; returns each path's launches."""
+    import decimal
+    started = time.perf_counter()
+    rows = len(cols[0]) // N_MAPS
+    dcols, dvalid = decimal_sales(cols, valid, rows)
+    launches = {}
+    out, la, sh, pushed, secs = run_phase29_pair(
+        "customer", decimal_plans("customer"), dcols, dvalid, "store_sales",
+        1, dev, K, hash_pid=True)
+    shapes += sh
+    launches["decimal_customer"] = la
+    serial = out
+    print(f"phase 29: (a)(1) group by customer of {rows} rows (price "
+          f"decimal(7,2)): {check_decimal_customer(out, dcols, dvalid)} "
+          f"groups (Sum decimal(17,2), Average decimal(11,6), Min and Max "
+          f"of the decimal(18,2) product) equal to numpy's integers in "
+          f"{secs:.3f} s, {pushed} map-side batches = "
+          f"{la['hash_partition_ids_i64']} hash-pid = "
+          f"{la['radix_bucket_hist']} radix-hist launches | {card}")
+    out, la, sh, pushed, secs = run_phase29_pair(
+        "price", decimal_plans("price"), dcols, dvalid, "store_sales", 1,
+        dev, K, hash_pid=True)
+    shapes += sh
+    launches["decimal_key"] = la
+    print(f"phase 29: (a)(2) group by the decimal price: "
+          f"{check_decimal_price(out, dcols, dvalid)} groups (Count, Sum of "
+          f"the quantity) equal to numpy in {secs:.3f} s, {pushed} map-side "
+          f"batches = {la['hash_partition_ids_i64']} hash-pid (the single "
+          f"decimal key's unscaled int64) = {la['radix_bucket_hist']} "
+          f"radix-hist launches | {card}")
+    t = time.perf_counter()
+    bounds = tuple(tuple(None if x is None else
+                         decimal.Decimal(x).scaleb(-2) for x in b)
+                   for b in range_bounds([dcols[2]], [dvalid[2]],
+                                         ((False, False),), DECIMAL_PARTS,
+                                         N_MAPS, seed))
+    sample_s = time.perf_counter() - t
+    out, la, sh, pushed, secs = run_phase29_pair(
+        "sort", decimal_plans("sort", bounds), dcols, dvalid,
+        "store_sales", 1, dev, K, hash_pid=False, scan_batch=SCAN_BATCH)
+    shapes += sh
+    launches["decimal_sort"] = la
+    print(f"phase 29: (a)(3) global sort by the decimal price DESC NULLS "
+          f"LAST by {len(bounds)} Decimal bounds (sampled in "
+          f"{sample_s:.2f} s): {check_decimal_sort(out, dcols, dvalid)} rows "
+          f"in Spark's order in {secs:.3f} s, {pushed} map-side batches = "
+          f"{la['radix_bucket_hist']} radix-hist launches, "
+          f"{la['hash_partition_ids_i64']} hash-pid | {card}")
+    fcols, fvalid = make_f32_keys(seed, min(F32_ROWS, len(cols[0])))
+    out, la, sh, pushed, secs = run_phase29_pair(
+        "floats32", f32_plans("group"), fcols, fvalid, "floats32",
+        N_F32_MAPS, dev, K, hash_pid=False)
+    shapes += sh
+    launches["float32_group_by"] = la
+    print(f"phase 29: (b) group by a float32 key over {len(fcols[0])} rows "
+          f"(+-0.0, NaNs of 4 patterns, +-inf, subnormals): "
+          f"{check_f32_group(out, fcols, fvalid)} groups (one for +-0.0, "
+          f"one for the NaNs, one null) equal to numpy under Spark's rules "
+          f"in {secs:.3f} s, {pushed} map-side batches = "
+          f"{la['radix_bucket_hist']} radix-hist, "
+          f"{la['hash_partition_ids_i64']} hash-pid | {card}")
+    with np.errstate(invalid="ignore"):     # a signalling NaN widened
+        fbounds = range_bounds([fcols[0]], [fvalid[0]], ((True, True),),
+                               DECIMAL_PARTS, N_F32_MAPS, seed)
+    out, la, sh, pushed, secs = run_phase29_pair(
+        "sort32", f32_plans("sort", fbounds), fcols, fvalid, "floats32",
+        N_F32_MAPS, dev, K, hash_pid=False, scan_batch=SCAN_BATCH)
+    shapes += sh
+    launches["float32_sort"] = la
+    print(f"phase 29: (b) global sort by the float32 key: "
+          f"{check_f32_sort(out, fcols, fvalid)} rows in Spark's order in "
+          f"{secs:.3f} s, {pushed} map-side batches = "
+          f"{la['radix_bucket_hist']} radix-hist launches | {card}")
+    launches["decimal_session_stage"] = run_decimal_session(
+        dcols, dvalid, serial, dev, K, card)
+    print(f"phase 29: {time.perf_counter() - started:.1f} s | {card}")
+    return launches
+
+
 def check_path_shapes(K, dev, rng, shapes) -> dict:
     """Phase 15, run last: each kernel at each (kernel, rows, n_parts) a
-    path of phases 3-14, 16-18, 21-24 and 28 gave it, held bit-exact against its
+    path of phases 3-14, 16-18, 21-24, 28 and 29 gave it, held bit-exact against its
     plain version on fresh inputs: hash-pid on int64 keys with 10% nulls,
     the histogram at the writer's padded capacity and the writer's sizes
     against torch.bincount.  Returns the largest difference (0) of each
@@ -4198,8 +4762,8 @@ def check_path_shapes(K, dev, rng, shapes) -> dict:
         if err:
             raise AssertionError(f"phase 15: {kernel} != plain at n={n} "
                                  f"n_parts={n_parts}")
-    print(f"phase 15: every kernel shape of phases 3-14, 16-18, 21-24 and 28 "
-          f"bit-exact "
+    print(f"phase 15: every kernel shape of phases 3-14, 16-18, 21-24, 28 and "
+          f"29 bit-exact "
           f"with its plain version, {len(done)} (kernel, rows, n_parts): "
           f"{sorted(done)}")
     return worst
@@ -4416,14 +4980,9 @@ def main() -> int:
           f"{check_q17m(out, jcols, jvalid)} stores, the null store first) "
           f"equal to numpy, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    # a 64th of the task: reading a whole task's trace (1.3 million
-    # launches) took 471 s on an H100, a sixteenth's 45-50 s
-    smj = q.plans["shuffle:q17m:2"]
-    profile_task("phase 13: q17m sort-merge join task 0 over the first "
-                 "64th of its blocks",
-                 lambda: q.run_task("shuffle:q17m:2", 0,
-                                    InProcessShuffleService(),
-                                    q.registry(smj, cut=64)), card)
+    # no profile of a sort-merge join task: its trace took 37-57 s to
+    # read at a 64th of its blocks (one block a partition), the most of
+    # any profile (PERF.md §5 keeps its last reading)
     del q, sales, returns, jcols, jvalid, ridx
     fcols, fvalid = make_float_keys(args.seed,
                                     min(FLOAT_KEY_ROWS, args.rows))
@@ -4667,6 +5226,9 @@ def main() -> int:
                                      shapes)
     del spill_window, item_k, store_k, store_v
 
+    p29_launches = run_phase29(cols, valid, dev, K, args.seed, card, shapes)
+    no_spills("29", card)
+
     errs = check_path_shapes(K, dev, rng, shapes)
     max_err, hist_err = max(max_err, errs["hash_pid"]), \
         max(hist_err, errs["hist"])
@@ -4696,7 +5258,8 @@ def main() -> int:
             "q01_session_serial": serial_launches["hash_partition_ids_i64"],
             "corpus": corpus_launches["hash_partition_ids_i64"],
             **{f"spill_{t}": la["hash_partition_ids_i64"]
-               for t, la in spill_launches.items()}},
+               for t, la in spill_launches.items()},
+            **{p: la["hash_partition_ids_i64"] for p, la in p29_launches.items()}},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -4722,7 +5285,8 @@ def main() -> int:
             "q01_session_serial": serial_launches["radix_bucket_hist"],
             "corpus": corpus_launches["radix_bucket_hist"],
             **{f"spill_{t}": la["radix_bucket_hist"]
-               for t, la in spill_launches.items()}},
+               for t, la in spill_launches.items()},
+            **{p: la["radix_bucket_hist"] for p, la in p29_launches.items()}},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,7 @@ from auron_tpu_torch.runtime.executor import execute_task_bytes
 from auron_tpu_torch.runtime.resources import ResourceRegistry
 
 import chip_smoke
+import torch_parity as TP
 
 SF = 0.01
 SCAN_BATCH = 1000
@@ -114,7 +115,9 @@ class _Port:
         for f in schema.fields:
             d = np.concatenate([x[0] for x in cols[f.name]])
             v = np.concatenate([x[1] for x in cols[f.name]])
-            arrays.append(pa.array(d, type=to_arrow_type(f.dtype), mask=~v))
+            typ = to_arrow_type(f.dtype)
+            arrays.append(TP.decimal_array(d, v, typ) if f.dtype.is_decimal
+                          else pa.array(d, type=typ, mask=~v))
         return pa.Table.from_arrays(arrays, names=[f.name
                                                    for f in schema.fields])
 

@@ -50,9 +50,27 @@ def chunks(cols, valid, size: int):
 def to_arrow(arrays, validities, schema=SRC_SCHEMA) -> pa.RecordBatch:
     from auron_tpu.ir.schema import to_arrow_type
     return pa.RecordBatch.from_arrays(
-        [pa.array(a, type=to_arrow_type(f.dtype), mask=~v)
+        [decimal_array(a, v, to_arrow_type(f.dtype)) if f.dtype.is_decimal
+         else pa.array(a, type=to_arrow_type(f.dtype), mask=~v)
          for a, v, f in zip(arrays, validities, schema.fields)],
         names=list(schema.names()))
+
+
+def decimal_array(unscaled, valid, typ) -> pa.Array:
+    """A decimal128 arrow array of int64 unscaled values: each value's
+    16-byte little-endian word, the low int64 sign-extended."""
+    u = np.where(valid, np.asarray(unscaled, np.int64), 0)
+    words = np.stack([u, np.where(u < 0, -1, 0)], axis=1).astype(np.int64)
+    return pa.Array.from_buffers(
+        typ, len(u), [pa.py_buffer(np.packbits(valid, bitorder="little")),
+                      pa.py_buffer(words.tobytes())])
+
+
+def decimal_unscaled(col) -> np.ndarray:
+    """The int64 unscaled values of a decimal128 arrow array of at most
+    18 digits (null slots as whatever they hold)."""
+    words = np.frombuffer(col.buffers()[1], dtype=np.int64)
+    return words[2 * col.offset:2 * (col.offset + len(col)):2].copy()
 
 
 def sales_aggs():
@@ -111,6 +129,9 @@ def jax_columns(batches, names):
             continue
         col = pa.chunked_array(arrs).combine_chunks()
         valid = np.asarray(col.is_valid())
+        if pa.types.is_decimal(col.type):
+            out[name] = (np.where(valid, decimal_unscaled(col), 0), valid)
+            continue
         if pa.types.is_date32(col.type):
             col = col.cast(pa.int32())
         elif pa.types.is_timestamp(col.type):
