@@ -241,3 +241,20 @@ conf.define(
     "auron.partial.agg.skipping.skip.spill", True,
     "Allow partial-agg skipping to engage even when spills already "
     "exist; when false, a spilled agg never switches to passthrough.")
+conf.define(
+    "auron.trace.enable", False,
+    "Record a query-lifecycle trace per AuronSession.execute "
+    "(runtime/tracing.py): spans for plan conversion, the stage "
+    "executor's launch, ingest, run and gather, per-(stage, partition) "
+    "task execution, shuffle push/commit/fetch and spill write/read, "
+    "with operator, memory and kernel-build events, exported as "
+    "Chrome-trace JSON on SessionResult.trace (validate and summarize "
+    "with `python -m auron_tpu_torch.trace`).  Spans read the host "
+    "clock.  Off (default) costs one contextvar read per span site.")
+conf.define(
+    "auron.trace.max.events", 100_000,
+    "Per-query span buffer bound (runtime/tracing.py): events past the "
+    "cap are counted as dropped instead of growing the recorder.")
+conf.define(
+    "auron.metrics.history.max", 64,
+    "Completed-query history ring size (runtime/tracing.py).")

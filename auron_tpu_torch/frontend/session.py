@@ -40,16 +40,28 @@ table's rows are data, not a section, and every other source is one,
 a scan that a convert provider hands to the engine
 (`converters.ScanSourceProvider`) included.
 
-Not in the port: query ids, tracing spans and query records, query
-statistics and plan signatures, adaptive execution, the durable
-shuffle side-car and result streaming.
+Observability (runtime/tracing.py, runtime/explain_analyze.py).  Every
+`execute` and `execute_converted` runs under a `trace_scope`: it mints a
+query id, bumps `queries_started` and `queries_completed` (or
+`queries_failed`), and records a `QueryRecord` in the history ring.
+With `auron.trace.enable` on, the spans `query`, `plan.convert`,
+`spmd.execute`, `exchange.map` and those of the tasks below land on
+`SessionResult.trace`.  The serial path keeps every task's metric tree
+(`SessionResult.metric_trees`, exchange map tasks included, in the
+order they ran); a stage-path refusal adds one `SpmdFallback` node;
+`SessionResult.explain_analyze()` renders them merged.  `metrics` stays
+the session's own counters.
+
+Not in the port: plan signatures, adaptive execution (with its
+`ExchangeStats` marker nodes), the durable shuffle side-car and result
+streaming.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Protocol, Tuple
+from typing import Callable, Dict, List, Optional, Protocol, Tuple
 
 import numpy as np
 
@@ -69,7 +81,13 @@ from auron_tpu_torch.ops.shuffle.writer import (
 from auron_tpu_torch.parallel.stage import (
     SpmdUnsupported, execute_plan_stage, precheck_plan,
 )
+from auron_tpu_torch.runtime import counters, tracing
 from auron_tpu_torch.runtime.executor import ExecutionResult, execute_plan
+from auron_tpu_torch.runtime.explain_analyze import (
+    explain_analyze as _explain_analyze, merge_metric_trees, metric_max,
+    metric_totals,
+)
+from auron_tpu_torch.runtime.metrics import MetricNode
 from auron_tpu_torch.runtime.planner import PhysicalPlanner
 from auron_tpu_torch.runtime.resources import ResourceRegistry
 
@@ -93,7 +111,9 @@ class SessionResult:
     on the serial path serial_tasks.  Through `execute`: the converted
     tree, the strategy's tags, the `ConvertContext`, the count of
     foreign sections and the host seconds that tagging and conversion
-    took (`convert_s`)."""
+    took (`convert_s`).  Observability: the query id, the trace
+    recorder when `auron.trace.enable` was on (else None), and the
+    per-task metric trees (`metric_trees`)."""
     schema: Schema
     columns: Dict[str, Tuple[np.ndarray, np.ndarray]]
     spmd: bool = False
@@ -105,6 +125,20 @@ class SessionResult:
     ctx: Optional[ConvertContext] = None
     foreign_sections: int = 0
     convert_s: float = 0.0
+    query_id: Optional[str] = None
+    trace: Optional[tracing.TraceRecorder] = None
+    metric_trees: List[MetricNode] = field(default_factory=list)
+
+    def explain_analyze(self, normalize: bool = False) -> str:
+        """The executed plan annotated with the merged per-task metric
+        trees (runtime/explain_analyze.py); `normalize=True` gives the
+        run-stable canonical form."""
+        totals = metric_totals(self.metric_trees)
+        return _explain_analyze(
+            self.metric_trees, query_id=self.query_id, wall_s=self.wall_s,
+            rows=self.num_rows, spmd=self.spmd,
+            retries=totals.get("num_retries", 0),
+            fallbacks=totals.get("num_fallbacks", 0), normalize=normalize)
 
     @property
     def num_rows(self) -> int:
@@ -149,6 +183,57 @@ class AuronSession:
         # materialized so far, and the tasks run
         self._done: Dict[str, object] = {}
         self._tasks = 0
+        # per execute: every task's metric tree, in the order they ran
+        self._trees: List[MetricNode] = []
+
+    # -- the query scope ------------------------------------------------------
+
+    def _query(self, run: Callable[[], SessionResult]) -> SessionResult:
+        """`run()` under a query scope: a fresh query id, the lifecycle
+        counters, the `query` span and the query record."""
+        scope = tracing.trace_scope()
+        counters.bump("queries_started")
+        self._trees = []
+        t0 = time.perf_counter()
+        wall_start = time.time()
+        res: Optional[SessionResult] = None
+        error: Optional[str] = None
+        try:
+            with scope, tracing.span("query", cat="query",
+                                     query_id=scope.query_id):
+                res = run()
+        except BaseException as e:
+            counters.bump("queries_failed")
+            error = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            wall_s = time.perf_counter() - t0
+            trees, self._trees = self._trees, []
+            st = scope.stats.snapshot()
+            tracing.record_query(tracing.QueryRecord(
+                query_id=scope.query_id, wall_s=wall_s,
+                rows=res.num_rows if res is not None else 0,
+                spmd=res.spmd if res is not None else False,
+                attempts=st.get("attempts", 0),
+                retries=st.get("retries", 0),
+                fallbacks=st.get("fallbacks", 0),
+                error=error, started_at=wall_start,
+                metric_totals=metric_totals(trees),
+                mem_peak=metric_max(trees, "mem_peak"),
+                mem_spills=st.get("mem_spills", 0),
+                mem_spill_bytes=st.get("mem_spill_bytes", 0),
+                metric_trees=[{"tasks": n, "tree": t.to_dict()}
+                              for t, n in merge_metric_trees(trees)],
+                timeline=[{"state": "running", "t": wall_start},
+                          {"state": "failed" if error else "succeeded",
+                           "t": wall_start + wall_s}],
+                trace=scope.recorder.to_chrome_trace()
+                if scope.recorder is not None else None))
+        counters.bump("queries_completed")
+        res.query_id = scope.query_id
+        res.trace = scope.recorder
+        res.metric_trees = trees
+        return res
 
     # -- a foreign plan -------------------------------------------------------
 
@@ -156,13 +241,17 @@ class AuronSession:
         """Run a foreign plan on `device` (the card unless the caller asks
         for the CPU)."""
         dev = resolve_device(device)
+        return self._query(lambda: self._execute_foreign(plan, dev))
+
+    def _execute_foreign(self, plan: ForeignNode, dev) -> SessionResult:
         t0 = time.perf_counter()
         if not conf.get("auron.enable"):
             table = self._run_foreign_only(plan)
             return self._table_result(plan.output, table, {}, t0)
-        tags = strategy.apply(plan)
-        ctx = ConvertContext()
-        converted = converters.convert_recursively(plan, tags, ctx)
+        with tracing.span("plan.convert", cat="plan"):
+            tags = strategy.apply(plan)
+            ctx = ConvertContext()
+            converted = converters.convert_recursively(plan, tags, ctx)
         convert_s = time.perf_counter() - t0
         _refuse_file_scans(converted, ctx)
         sources = _Sources(self, ctx, dev)
@@ -240,7 +329,8 @@ class AuronSession:
         asks for the CPU).  `sources` maps each FFI reader's resource id
         to its table, an `ops.scan.ipc.SourceTable`."""
         dev = resolve_device(device)
-        return self._execute(plan, ctx, sources, dev, time.perf_counter())
+        return self._query(lambda: self._execute(
+            plan, ctx, sources, dev, time.perf_counter()))
 
     def _execute(self, plan: P.PlanNode, ctx: ConvertContext, sources,
                  dev, t0: float) -> SessionResult:
@@ -253,13 +343,18 @@ class AuronSession:
                 try:
                     # the kind-level check comes before any source is made
                     precheck_plan(plan, ctx)
-                    out = execute_plan_stage(plan, ctx, sources, dev)
+                    with tracing.span("spmd.execute", cat="spmd"):
+                        out = execute_plan_stage(plan, ctx, sources, dev)
                     metrics.update(out.metrics)
                     return self._result(out, True, None, metrics, t0)
                 except SpmdUnsupported as e:
                     # the serial path below is the recovery
                     metrics["num_fallbacks"] = 1
                     rejection = str(e)
+                    tracing.stats_bump("fallbacks")
+                    fb = MetricNode("SpmdFallback")
+                    fb.add("num_fallbacks", 1)
+                    self._trees.append(fb)
             out = self._run_native(plan, ctx, sources, dev)
         finally:
             self._clear(ctx)
@@ -293,6 +388,7 @@ class AuronSession:
                                num_partitions=n_parts, resources=resources,
                                device=dev)
             self._tasks += 1
+            self._trees.append(res.metrics)
             batches.extend(res.batches)
             schema = res.schema
         if schema is None:
@@ -327,16 +423,19 @@ class AuronSession:
         svc = self.shuffle_service
         map_deps = self._materialize_deps(job.child, ctx, sources, dev)
         map_parts = ctx.parts(job.child)
-        for map_pid in range(map_parts):
-            writer_rid = f"{job.rid}:writer:{map_pid}"
-            map_deps.put(writer_rid, svc.rss_writer(job.rid, map_pid))
-            writer = P.RssShuffleWriter(child=job.child,
-                                        partitioning=job.partitioning,
-                                        rss_resource_id=writer_rid)
-            execute_plan(writer, partition_id=map_pid,
-                         num_partitions=map_parts, resources=map_deps,
-                         device=dev)
-            self._tasks += 1
+        with tracing.span("exchange.map", cat="exchange", rid=job.rid,
+                          parts=map_parts):
+            for map_pid in range(map_parts):
+                writer_rid = f"{job.rid}:writer:{map_pid}"
+                map_deps.put(writer_rid, svc.rss_writer(job.rid, map_pid))
+                writer = P.RssShuffleWriter(child=job.child,
+                                            partitioning=job.partitioning,
+                                            rss_resource_id=writer_rid)
+                res = execute_plan(writer, partition_id=map_pid,
+                                   num_partitions=map_parts,
+                                   resources=map_deps, device=dev)
+                self._tasks += 1
+                self._trees.append(res.metrics)
         blocks: List[list] = [svc.reduce_blocks(job.rid, p) for p in
                               range(job.partitioning.num_partitions)]
         return PartitionedBlocks(blocks)

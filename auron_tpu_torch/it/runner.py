@@ -13,8 +13,13 @@ executes, and each timed execute records the seconds the Python
 collector ran inside it, so a collection of a long process's heap shows
 as what it is and does not pass for a query's time.
 
+With `analyze` the runner keeps each query's EXPLAIN ANALYZE text (of
+its cold execute) on `QueryResult.analyze`; with `trace_dir`, and
+`auron.trace.enable` on, it writes each query's cold trace to
+`<trace_dir>/<name>.trace.json`.
+
 Not in the port's runner: the converted-plan lint and plan stability
-goldens, the perf gate against the oracle, EXPLAIN ANALYZE and traces.
+goldens and the perf gate against the oracle.
 """
 
 from __future__ import annotations
@@ -127,6 +132,8 @@ class QueryResult:
     warm_s: List[float] = field(default_factory=list)
     gc_s: List[float] = field(default_factory=list)
     trace: Optional[str] = None     # the traceback of a query that raised
+    # EXPLAIN ANALYZE text of the cold execute (QueryRunner.analyze)
+    analyze: Optional[str] = None
 
     def to_dict(self) -> Dict:
         d = dict(self.__dict__)
@@ -148,6 +155,10 @@ class QueryRunner:
     expected: Dict[str, HostTable]
     device: object = None
     results: List[QueryResult] = field(default_factory=list)
+    # keep each query's EXPLAIN ANALYZE text on QueryResult.analyze
+    analyze: bool = False
+    # with auron.trace.enable on: write <trace_dir>/<name>.trace.json
+    trace_dir: Optional[str] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -191,6 +202,10 @@ class QueryRunner:
                     for k, v in kernels_cuda.LAUNCHES.items()}
         (cold, cold_s, _), *warms = runs
         warm = warms[-1][0]
+        if self.trace_dir is not None and cold.trace is not None:
+            os.makedirs(self.trace_dir, exist_ok=True)
+            cold.trace.save(os.path.join(self.trace_dir,
+                                         f"{name}.trace.json"))
         error = None
         for run, (res, _, _) in zip([""] + ["warm run: "] * len(warms),
                                     runs):
@@ -216,7 +231,8 @@ class QueryRunner:
             peak_bytes=torch.cuda.max_memory_allocated(self.device)
             if cuda else None,
             launches=launches, warm_s=[w for _, w, _ in warms],
-            gc_s=[g for _, _, g in runs])
+            gc_s=[g for _, _, g in runs],
+            analyze=cold.explain_analyze() if self.analyze else None)
         self.results.append(qr)
         return qr
 

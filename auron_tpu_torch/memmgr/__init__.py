@@ -2,8 +2,8 @@
 auron_tpu/memmgr): a registry of `MemConsumer`s with wait-or-spill
 arbitration (`manager.py`) and the spill tiers (`spill.py`).  The JAX
 package's per-query kill and pressure hooks (`set_kill_hook`,
-`set_pressure_hook`, `reset_hooks`) wait for the port's tracing and
-task pool (ROADMAP Queue 1 items 16 and 18)."""
+`set_pressure_hook`, `reset_hooks`) wait for the port's per-query
+memory ledger and task pool (ROADMAP Queue 1 items 16 and 18)."""
 
 from auron_tpu_torch.memmgr.manager import (
     MemConsumer, MemManager, get_manager,

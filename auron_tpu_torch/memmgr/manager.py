@@ -17,11 +17,16 @@ the bytes freed, the wall time), a spill-size histogram, reservations
 that shrink the effective budget, and per-consumer-name totals that
 survive unregistration.
 
+A consumer is charged to the query whose scope registered it (its
+`_query_id`, runtime/tracing.py).  Each spill bumps the ambient query's
+`mem_spills` and `mem_spill_bytes` (`tracing.stats_bump`) and records a
+`mem.spill` trace event; each watermark crossing records a
+`mem.pressure` event.
+
 Not in the port yet (ROADMAP Queue 1 items 16 and 18): the per-query
-ledger with its budget and kill hook, the pressure hook, the `query`
-victim strategy and the `mem.pressure` / `mem.spill` trace events; a
-non-zero `auron.memory.query.budget.bytes` or the `query` strategy
-raises.
+ledger with its budget and kill hook, the pressure hook and the `query`
+victim strategy; a non-zero `auron.memory.query.budget.bytes` or the
+`query` strategy raises.
 
 The default budget is `auron.memory.fraction` of the card's memory
 (`torch.cuda.mem_get_info`'s total), or of 4 GiB where there is no
@@ -36,6 +41,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from auron_tpu_torch.config import conf
+from auron_tpu_torch.runtime import tracing
 
 # spill-size histogram bucket upper bounds (bytes); the last bucket is
 # open-ended
@@ -81,12 +87,13 @@ class MemConsumer:
         self.mem_used = 0
         self.mem_peak = 0
         self._manager: Optional["MemManager"] = None
-        self._metrics: Optional[Dict[str, int]] = None
+        self._metrics = None
         self._owner_thread: Optional[int] = None
+        self._query_id: Optional[str] = None
 
-    def bind_metrics(self, metrics: Dict[str, int]) -> None:
-        """The operator's flat counters: on unregister the manager
-        writes this consumer's peak there as `mem_peak`."""
+    def bind_metrics(self, metrics) -> None:
+        """The operator's `MetricNode`: on unregister the manager writes
+        this consumer's peak there as `mem_peak`."""
         self._metrics = metrics
 
     def update_mem_used(self, new_bytes: int) -> None:
@@ -186,8 +193,12 @@ class MemManager:
     # -- consumer registry -------------------------------------------------
 
     def register_consumer(self, consumer: MemConsumer) -> MemConsumer:
+        # the consumer is charged to the ambient query (one contextvar
+        # read, outside the lock)
+        qid = tracing.current_query_id()
         with self._lock:
             consumer._manager = self
+            consumer._query_id = qid
             # spill() mutates operator internals, so only the thread
             # running the operator's task may invoke it
             consumer._owner_thread = threading.get_ident()
@@ -211,24 +222,27 @@ class MemManager:
                     ent["peak"] = consumer.mem_peak
         metrics = consumer._metrics
         if metrics is not None and consumer.mem_peak > \
-                metrics.get("mem_peak", 0):
-            metrics["mem_peak"] = consumer.mem_peak
+                metrics.values.get("mem_peak", 0):
+            metrics.set("mem_peak", consumer.mem_peak)
 
     # -- usage update + arbitration ---------------------------------------
 
-    def _check_watermarks(self, consumer: MemConsumer) -> None:
-        """Record pending watermark crossings (lock held).  Each fraction
-        fires once, in increasing order."""
+    def _check_watermarks(self, consumer: MemConsumer) -> List[Dict]:
+        """Record pending watermark crossings (lock held) and return
+        them.  Each fraction fires once, in increasing order."""
+        fired: List[Dict] = []
         budget = self.effective_budget
         while self._wm_next < len(self._wm_fractions):
             frac = self._wm_fractions[self._wm_next]
             if self.total_used < budget * frac:
                 break
-            self._wm_crossings.append(
-                {"fraction": frac, "used": self.total_used,
-                 "budget": budget, "consumer": consumer.name,
-                 "at": time.time()})
+            crossing = {"fraction": frac, "used": self.total_used,
+                        "budget": budget, "consumer": consumer.name,
+                        "at": time.time()}
+            self._wm_crossings.append(crossing)
+            fired.append(crossing)
             self._wm_next += 1
+        return fired
 
     def _record_spill(self, target: MemConsumer, requester: MemConsumer,
                       path: str, freed: int, wall_ns: int) -> SpillRecord:
@@ -255,6 +269,14 @@ class MemManager:
                 ent["wall_ns"] += rec.wall_ns
             self._spill_records.append(rec)
             del self._spill_records[:-self.MAX_SPILL_RECORDS]
+        # the spill runs on the task's thread, which carries its query's
+        # context
+        tracing.stats_bump("mem_spills")
+        tracing.stats_bump("mem_spill_bytes", rec.freed_bytes)
+        tracing.event("mem.spill", cat="mem", consumer=rec.consumer,
+                      requested_by=rec.requested_by, path=rec.path,
+                      freed_bytes=rec.freed_bytes,
+                      wall_ms=rec.wall_ns / 1e6)
         return rec
 
     def _timed_spill(self, target: MemConsumer, requester: MemConsumer,
@@ -302,12 +324,13 @@ class MemManager:
         """Update usage; may synchronously spill (this consumer or
         another of this thread's) to stay under budget."""
         spill_target: Optional[MemConsumer] = None
+        pressure: List[Dict] = []
         with self._lock:
             self.total_used += new_bytes - consumer.mem_used
             consumer.mem_used = new_bytes
             consumer.mem_peak = max(consumer.mem_peak, new_bytes)
             self.peak_used = max(self.peak_used, self.total_used)
-            self._check_watermarks(consumer)
+            pressure = self._check_watermarks(consumer)
             if not getattr(self._tls, "spilling", 0) and \
                     self.total_used > self.effective_budget:
                 trigger = min_trigger_size()
@@ -319,6 +342,10 @@ class MemManager:
                 if candidates:
                     spill_target = self._pick_spill_victim(candidates)
                 # else: over budget, but nothing is big enough to bother
+        for p in pressure:
+            tracing.event("mem.pressure", cat="mem",
+                          fraction=p["fraction"], used=p["used"],
+                          budget=p["budget"], consumer=p["consumer"])
         if spill_target is None:
             return
         # spill outside the lock (spill() re-enters update())

@@ -16,8 +16,12 @@ column's byte matrix and lengths), the live rows only:
 A read rebuilds each batch at the capacity it was written at, its
 padding rows null and zero.  `SpillManager.new_spill` picks the tier
 from `auron.spill.host.memory.first`; no tier falls back to the other.
-The shuffle's wire frames (ROADMAP Queue 1 item 14), fault points and
-spans (item 16) are not in the port yet.
+Each write is a `spill.write` trace span with its tier and the bytes it
+wrote (`nbytes`); each read opens with a `spill.read` span with its tier
+and the bytes the spill holds, as in the JAX package (a read is a
+generator, so the span marks its start).  The shuffle's wire frames
+(ROADMAP Queue 1 item 14) and fault points (item 16) are not in the port
+yet.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from auron_tpu_torch.columnar.batch import (
 )
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.ir.schema import Schema
+from auron_tpu_torch.runtime.tracing import span
 
 
 @dataclass
@@ -127,23 +132,29 @@ class HostMemSpill(Spill):
         self._size = 0
 
     def write_batches(self, batches: Iterable[Batch]) -> int:
-        on_card = False
-        for b in batches:
-            f = _frame(b)
-            host = []
-            for t in _tensors(b):
-                pin = t.is_cuda
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
-                h.copy_(t, non_blocking=pin)
-                on_card |= pin
-                host.append(h)
-                self._size += h.numel() * h.element_size()
-            self._frames.append((f, host))
-        if on_card:
-            torch.cuda.current_stream().synchronize()
+        with span("spill.write", cat="spill", tier=self.tier) as sp:
+            before = self._size
+            on_card = False
+            for b in batches:
+                f = _frame(b)
+                host = []
+                for t in _tensors(b):
+                    pin = t.is_cuda
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                    h.copy_(t, non_blocking=pin)
+                    on_card |= pin
+                    host.append(h)
+                    self._size += h.numel() * h.element_size()
+                self._frames.append((f, host))
+            if on_card:
+                torch.cuda.current_stream().synchronize()
+            sp.set_args(nbytes=self._size - before)
         return self._size
 
     def read_batches(self, device=None):
+        with span("spill.read", cat="spill", tier=self.tier,
+                  nbytes=self._size):
+            pass
         for f, host in self._frames:
             yield _rebuild(f, host, device)
 
@@ -211,7 +222,9 @@ class FileSpill(Spill):
         self._cleanup = weakref.finalize(self, _unlink_quiet, self.path)
 
     def write_batches(self, batches: Iterable[Batch]) -> int:
-        with open(self.path, "ab") as fh:
+        with span("spill.write", cat="spill", tier=self.tier) as sp, \
+                open(self.path, "ab") as fh:
+            before = self._size
             for b in batches:
                 entries = []
                 for t in _tensors(b):
@@ -221,9 +234,13 @@ class FileSpill(Spill):
                     entries.append((t.dtype, tuple(t.shape), len(raw)))
                     self._size += len(raw)
                 self._index.append((_frame(b), entries))
+            sp.set_args(nbytes=self._size - before)
         return self._size
 
     def read_batches(self, device=None):
+        with span("spill.read", cat="spill", tier=self.tier,
+                  nbytes=self._size):
+            pass
         with open(self.path, "rb") as fh:
             for f, entries in self._index:
                 tensors = []

@@ -2,27 +2,37 @@
 auron_tpu/ops/base.py).
 
 Operators are host-driven generators of padded device batches.  Each
-keeps a flat dict of counters (`metrics`); the task returns its root
-operator's, and every operator's by name.  A spillable operator
-registers with the task's memory manager for the length of its stream
-(`mem_scope`): its peak lands in its counters as `mem_peak`, and each
-spill it writes counts `mem_spill_count`, `mem_spill_size` (the bytes the
-tier holds) and `mem_spill_<tier>` (`count_spill`).  The JAX package's
-metric trees and tracing are not in the port yet (ROADMAP Queue 1 item
-16).
+owns a `MetricNode` (`metrics`, runtime/metrics.py) named after it, with
+its children's nodes as its children, so the root's node is the task's
+metric tree.  A parent pulls a child through `execute_with_metrics`,
+which records the child's `output_rows`, `output_batches` and
+`elapsed_compute_ns` and, at the stream's end, one `op.complete` trace
+event; `count` adds any other counter.  `elapsed_compute_ns` reads the
+host clock and includes the time of the pulls from the operator's own
+children, as in the JAX package: on a GPU it is the host's dispatch of
+the work plus any synchronization inside it, not device time.
+
+A spillable operator registers with the task's memory manager for the
+length of its stream (`mem_scope`): its peak lands in its node as
+`mem_peak`, and each spill it writes counts `mem_spill_count`,
+`mem_spill_size` (the bytes the tier holds) and `mem_spill_<tier>`
+(`count_spill`).
 """
 
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.ir.schema import Schema
 from auron_tpu_torch.memmgr import MemConsumer, SpillManager
+from auron_tpu_torch.runtime import tracing
+from auron_tpu_torch.runtime.metrics import MetricNode
 from auron_tpu_torch.runtime.resources import ResourceRegistry
 
 
@@ -46,16 +56,42 @@ class Operator:
     def __init__(self, schema: Schema, children: List["Operator"]):
         self.schema = schema
         self.children = children
-        self.metrics: Dict[str, int] = {}
+        self.name = type(self).__name__
+        self.metrics = MetricNode(self.name)
+        for c in children:
+            self.metrics.children.append(c.metrics)
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
         raise NotImplementedError
 
+    def execute_with_metrics(self, ctx: TaskContext) -> Iterator[Batch]:
+        """`execute` with `output_rows`, `output_batches` and
+        `elapsed_compute_ns` (host clock, the children's pulls
+        included) recorded, and one `op.complete` event at the stream's
+        end: an instant, never a span per batch, since the generator
+        frames of a task interleave."""
+        it = self.execute(ctx)
+        m = self.metrics
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                batch = next(it)
+            except StopIteration:
+                m.add("elapsed_compute_ns", time.perf_counter_ns() - t0)
+                tracing.event("op.complete", cat="op", op=self.name,
+                              rows=m.values.get("output_rows", 0),
+                              batches=m.values.get("output_batches", 0))
+                return
+            m.add("elapsed_compute_ns", time.perf_counter_ns() - t0)
+            m.add("output_rows", batch.num_rows)
+            m.add("output_batches", 1)
+            yield batch
+
     def child_stream(self, ctx: TaskContext, i: int = 0) -> Iterator[Batch]:
-        return self.children[i].execute(ctx)
+        return self.children[i].execute_with_metrics(ctx)
 
     def count(self, name: str, n: int = 1) -> None:
-        self.metrics[name] = self.metrics.get(name, 0) + n
+        self.metrics.add(name, n)
 
     def count_spill(self, spill, size: int) -> None:
         """A spill this operator wrote: `size` bytes to `spill`'s tier."""
@@ -66,8 +102,9 @@ class Operator:
     @contextmanager
     def mem_scope(self, ctx: TaskContext, consumer=None):
         """Register a MemConsumer (the operator itself by default) with
-        the task's memory manager for the length of the scope; on
-        unregister its peak lands in this operator's `mem_peak`."""
+        the task's memory manager for the length of the scope, bound to
+        this operator's node: on unregister its peak lands there as
+        `mem_peak`."""
         from auron_tpu_torch.memmgr import get_manager
         mgr = ctx.mem_manager or get_manager()
         c = consumer if consumer is not None else self

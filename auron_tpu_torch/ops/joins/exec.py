@@ -267,16 +267,21 @@ class BroadcastJoinExec(_HashJoinBase):
         if ctx.resources.contains(key):
             return ctx.resources.get(key)
         build = self.children[self._build_i]
-        table = build.build_table(ctx) \
-            if isinstance(build, BroadcastJoinBuildHashMapExec) \
-            else self._collect_build(ctx)
+        if isinstance(build, BroadcastJoinBuildHashMapExec):
+            # pulled as a stream, so its node counts the rows it built over
+            for _ in build.execute_with_metrics(ctx):
+                pass
+            return ctx.resources.get(key)
+        table = self._collect_build(ctx)
         ctx.resources.put(key, table)
         return table
 
 
 class BroadcastJoinBuildHashMapExec(Operator):
     """The build-map stage: builds the table over the broadcast rows and
-    caches it under `bhm:<cache_id>`; streams the rows it built over."""
+    caches it under `bhm:<cache_id>`; streams the rows it built over, as
+    one batch (an empty one where there are none, as in the JAX
+    package)."""
 
     def __init__(self, child: Operator, keys, cache_id: str):
         super().__init__(child.schema, [child])
@@ -294,9 +299,7 @@ class BroadcastJoinBuildHashMapExec(Operator):
         return table
 
     def execute(self, ctx: TaskContext) -> Iterator[Batch]:
-        table = self.build_table(ctx)
-        if table.batch.num_rows:
-            yield table.batch
+        yield self.build_table(ctx).batch
 
 
 class SortMergeJoinExec(_HashJoinBase, MemConsumer):

@@ -7,7 +7,10 @@ auron_tpu/ops/kernels_pallas.py:
 Each source is compiled with `nvcc` for sm_90a into
 `build/auron_tpu_torch/` at first use and loaded with ctypes (a plain C
 interface builds in seconds, where a source including PyTorch's headers
-takes minutes).
+takes minutes).  Each `nvcc` run records a `kernel.build` trace event
+(cat `compile`, runtime/tracing.py) with the source's name and the
+build's host seconds; a library already in the build directory records
+none.
 
 Each wrapper runs its plain PyTorch version, which lives beside it, only
 for tensors on the CPU.  For a CUDA tensor it launches the kernel or
@@ -17,8 +20,10 @@ run can show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import os
+import time
 import subprocess
 import threading
 from pathlib import Path
@@ -29,6 +34,7 @@ import torch
 from auron_tpu_torch.columnar.batch import DeviceColumn
 from auron_tpu_torch.exprs.hashing import hash_columns, pmod
 from auron_tpu_torch.ir.schema import DataType
+from auron_tpu_torch.runtime.tracing import event
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"hash_pid": _PKG / "csrc" / "hash_pid.cu",
@@ -66,17 +72,21 @@ def _compile(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
     os.replace(tmp, lib)
+    event("kernel.build", cat="compile", kernel=name,
+          seconds=time.perf_counter() - t0)
     return lib
 
 
 def build() -> None:
-    """Build every kernel library (nvcc processes started together) and
-    load them."""
+    """Build every kernel library (nvcc processes started together, each
+    thread in a copy of the caller's context, so its `kernel.build`
+    event reaches the caller's trace) and load them."""
     with _build_lock:
         todo = [n for n in SOURCES if n not in _libs]
         errors = []
@@ -86,7 +96,8 @@ def build() -> None:
                 _compile(name)
             except Exception as e:  # noqa: BLE001 - re-raised below
                 errors.append(e)
-        threads = [threading.Thread(target=run, args=(n,)) for n in todo]
+        threads = [threading.Thread(target=contextvars.copy_context().run,
+                                    args=(run, n)) for n in todo]
         for t in threads:
             t.start()
         for t in threads:

@@ -14,12 +14,16 @@ than `auron.string.device.max.width` raises (`columnar/batch.py`).
 `IpcReaderExec` reads a partition-indexed source (`for_partition`), whose
 blocks are the port's device `Batch`es: the JAX reader's branch for
 already-decoded v2 frames.  The byte frames of auron_tpu/columnar/serde.py
-are not in this slice.
+are not in the port yet (ROADMAP Queue 1 item 14).  Its node counts
+`shuffle_read_rows`, `shuffle_read_time_ns` (host clock) and, from a
+shuffle's partition-indexed source, `shuffle_read_bytes` (tensor bytes),
+which the process counter `shuffle_bytes_fetched` sums too.
 """
 
 from __future__ import annotations
 
 import datetime
+import time
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -29,6 +33,7 @@ from auron_tpu_torch.columnar.batch import (
 )
 from auron_tpu_torch.ir.schema import Schema, TypeId
 from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.runtime import counters
 
 
 class IpcReaderExec(Operator):
@@ -40,6 +45,13 @@ class IpcReaderExec(Operator):
         src = ctx.resources.get(self.resource_id)
         if hasattr(src, "for_partition"):
             src = src.for_partition(ctx.partition_id)
+            nbytes = sum(b.mem_bytes() for b in src
+                         if isinstance(b, Batch))
+            if nbytes:
+                counters.bump("shuffle_bytes_fetched", nbytes)
+                self.count("shuffle_read_bytes", nbytes)
+        t0 = time.perf_counter_ns()
+        n = 0
         for b in src:
             if not isinstance(b, Batch):
                 raise TypeError(f"IPC block of type {type(b).__name__}: "
@@ -47,9 +59,11 @@ class IpcReaderExec(Operator):
             if b.device != ctx.device:
                 raise ValueError(f"shuffle block on {b.device}, task on "
                                  f"{ctx.device}")
-            self.count("shuffle_read_rows", b.num_rows)
+            n += b.num_rows
             yield b if b.schema == self.schema else \
                 Batch(self.schema, b.columns, b.num_rows, b.capacity)
+        self.count("shuffle_read_rows", n)
+        self.count("shuffle_read_time_ns", time.perf_counter_ns() - t0)
 
 
 class FFIReaderExec(Operator):

@@ -22,12 +22,22 @@ device.
 The JAX package frames blocks as Arrow-IPC/v2 bytes (columnar/serde.py),
 which needs pyarrow; here a block is pushed as the `Batch` itself, and
 the `bytes` column of the writer's output counts the block tensors'
-bytes instead of frame bytes (a string column W + 4 + 1 a row).
+bytes instead of frame bytes (a string column W + 4 + 1 a row), until
+the wire frames come (ROADMAP Queue 1 item 14).
+
+Observability, under the JAX package's names: the writer's node counts
+`shuffle_write_rows`, `shuffle_write_time_ns` (host clock) and
+`shuffle_write_bytes`, and the process counter `shuffle_bytes_pushed`
+the pushed blocks' bytes (tensor bytes, as above).  The writer records
+a `shuffle.push` span around each block's push, and the in-process
+service a `shuffle.commit` span per map task and a `shuffle.fetch.part`
+span per reduce partition read.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -43,6 +53,8 @@ from auron_tpu_torch.ops.base import Operator, TaskContext
 from auron_tpu_torch.ops.kernels_cuda import HIST_MAX_BITS, radix_bucket_hist
 from auron_tpu_torch.ops.radix_sort import ceil_log2
 from auron_tpu_torch.ops.shuffle.partitioner import PartitionIdComputer
+from auron_tpu_torch.runtime import counters
+from auron_tpu_torch.runtime.tracing import span
 
 
 class RssPartitionWriter:
@@ -125,14 +137,23 @@ class RssShuffleWriterExec(Operator):
         for b in self.child_stream(ctx):
             if b.num_rows == 0:
                 continue
+            t0 = time.perf_counter_ns()
             sizes, parts = self._partition(b)
+            # blocks hold their rows unpadded
+            row_bytes = b.mem_bytes() // b.capacity
             for pid in np.flatnonzero(sizes):
                 n = int(sizes[pid])
-                writer.write(int(pid), Batch(b.schema, [p[pid] for p in parts],
-                                             n, n))
+                with span("shuffle.push", cat="shuffle", partition=int(pid),
+                          nbytes=n * row_bytes):
+                    writer.write(int(pid), Batch(
+                        b.schema, [p[pid] for p in parts], n, n))
             rows += sizes
-            # blocks hold their rows unpadded
-            nbytes += sizes * (b.mem_bytes() // b.capacity)
+            pushed = sizes * row_bytes
+            nbytes += pushed
+            total = int(pushed.sum())
+            counters.bump("shuffle_bytes_pushed", total)
+            self.count("shuffle_write_bytes", total)
+            self.count("shuffle_write_time_ns", time.perf_counter_ns() - t0)
         writer.flush()
         yield from_numpy(self.schema, [np.arange(n_parts, dtype=np.int32),
                                        nbytes, rows], device=ctx.device)
@@ -153,9 +174,14 @@ class InProcessShuffleService:
 
     def reduce_blocks(self, shuffle_id: str, reduce_pid: int) -> List[Batch]:
         """One reduce partition's blocks, ordered by map id."""
-        with self._lock:
-            entries = list(self._blocks.get((shuffle_id, reduce_pid), []))
-        return [blk for _mid, blk in sorted(entries, key=lambda e: e[0])]
+        with span("shuffle.fetch.part", cat="shuffle",
+                  partition=reduce_pid) as sp:
+            with self._lock:
+                entries = list(self._blocks.get((shuffle_id, reduce_pid),
+                                                []))
+            out = [blk for _mid, blk in sorted(entries, key=lambda e: e[0])]
+            sp.set_args(nbytes=sum(b.mem_bytes() for b in out))
+            return out
 
     def clear(self, shuffle_id: str) -> None:
         """Drop every block of one exchange."""
@@ -182,15 +208,18 @@ class _InProcessWriter(RssPartitionWriter):
         self._staged.setdefault(partition_id, []).append(block)
 
     def flush(self) -> None:
-        merged = {pid: blocks[0] if len(blocks) == 1 else
-                  concat_batches(blocks[0].schema, blocks)
-                  for pid, blocks in self._staged.items()}
-        with self._svc._lock:
-            for pid, block in merged.items():
-                entries = self._svc._blocks.setdefault((self._sid, pid), [])
-                entries[:] = [e for e in entries if e[0] != self._map_id]
-                entries.append((self._map_id, block))
-        self._staged = {}
+        with span("shuffle.commit", cat="shuffle"):
+            merged = {pid: blocks[0] if len(blocks) == 1 else
+                      concat_batches(blocks[0].schema, blocks)
+                      for pid, blocks in self._staged.items()}
+            with self._svc._lock:
+                for pid, block in merged.items():
+                    entries = self._svc._blocks.setdefault(
+                        (self._sid, pid), [])
+                    entries[:] = [e for e in entries
+                                  if e[0] != self._map_id]
+                    entries.append((self._map_id, block))
+            self._staged = {}
 
 
 class PartitionedBlocks:

@@ -35,6 +35,13 @@ join; the filter, projection, union, expand, top-k sort and limit read
 nothing back.  Sources go through a device-resident cache
 (`auron.spmd.source.cache.mb`): a table is uploaded once per (table,
 device, string layout) and evicted least recently used.
+
+Trace spans (runtime/tracing.py, the JAX package's names): `spmd.launch`
+around the evaluation, and inside it `spmd.ingest` (the sources'
+uploads), `spmd.run` (the operators) and `spmd.gather` (the result's
+compaction).  The JAX package's `spmd.compile` has no counterpart: the
+port compiles nothing.  Spans read the host clock; the reads back named
+above are the only syncs inside them.
 """
 
 from __future__ import annotations
@@ -68,7 +75,9 @@ from auron_tpu_torch.ops.sort_keys import (
 )
 from auron_tpu_torch.ops.strategy import join_probe_strategy
 from auron_tpu_torch.ops.window.exec import WindowExec
+from auron_tpu_torch.runtime import tracing
 from auron_tpu_torch.runtime.executor import ExecutionResult, execute_plan
+from auron_tpu_torch.runtime.metrics import MetricNode
 from auron_tpu_torch.runtime.resources import ResourceRegistry
 
 
@@ -93,10 +102,12 @@ class DeviceTable:
 
 
 class _SchemaOnly:
-    """The child an operator is built over for its metadata alone."""
+    """The child an operator is built over for its metadata alone (with
+    a metric node, as an operator's child has)."""
 
     def __init__(self, schema: Schema):
         self.schema = schema
+        self.metrics = MetricNode("src")
 
 
 def _empty_table(schema: Schema, dev: torch.device) -> DeviceTable:
@@ -847,8 +858,8 @@ def execute_plan_stage(plan: P.PlanNode, conv_ctx, sources: Dict[str, Any],
     Limit and RenameColumns is peeled and replayed through the serial
     `execute_plan` over the gathered live rows (on the device), as
     Spark's final collect.  Returns the result batches, the result
-    schema, and metrics: host_syncs, bytes_uploaded, source_cache_hits,
-    gathered_rows.  Raises SpmdUnsupported for a plan it cannot
+    schema, and metrics (one `SpmdStage` node): host_syncs,
+    bytes_uploaded, source_cache_hits, gathered_rows.  Raises SpmdUnsupported for a plan it cannot
     express."""
     dev = resolve_device(device)
     exchanges = getattr(conv_ctx, "exchanges", None) or {}
@@ -868,16 +879,22 @@ def execute_plan_stage(plan: P.PlanNode, conv_ctx, sources: Dict[str, Any],
         plan = _require_native(job.child)
     precheck_plan(plan, conv_ctx)
 
-    stats = {"host_syncs": 0, "bytes_uploaded": 0, "source_cache_hits": 0,
-             "gathered_rows": 0}
-    bindings = {rid: _upload(sources[rid], schema, dev, stats)
+    stats = MetricNode("SpmdStage", values={
+        "host_syncs": 0, "bytes_uploaded": 0, "source_cache_hits": 0,
+        "gathered_rows": 0})
+    with tracing.span("spmd.launch", cat="spmd"):
+        with tracing.span("spmd.ingest", cat="spmd"):
+            bindings = {
+                rid: _upload(sources[rid], schema, dev, stats.values)
                 for rid, schema in _source_schemas(plan, conv_ctx).items()
                 if rid in sources}
-    tracer = _StageTracer(conv_ctx, bindings, dev, shadow_sort)
-    out = tracer.eval_node(plan)
-    gathered = tracer.gather(out)
-    stats["host_syncs"] = tracer.syncs
-    stats["gathered_rows"] = gathered.num_rows
+        tracer = _StageTracer(conv_ctx, bindings, dev, shadow_sort)
+        with tracing.span("spmd.run", cat="spmd"):
+            out = tracer.eval_node(plan)
+        with tracing.span("spmd.gather", cat="spmd"):
+            gathered = tracer.gather(out)
+    stats.set("host_syncs", tracer.syncs)
+    stats.set("gathered_rows", gathered.num_rows)
     batches = [gathered] if gathered.num_rows else []
     if not tail:
         return ExecutionResult(batches, out.schema, stats)

@@ -5,14 +5,18 @@ serialized `TaskDefinition` in, the root operator's batches out.  Every
 entry point runs on the card unless the caller passes `device="cpu"`.
 A task runs under the process's memory manager (`memmgr.get_manager()`),
 so its sort, aggregation, window and sort-merge join spill past the
-budget.  The JAX runtime's retry tiers, plan verifier, fusion pass and
-tracing are not in the port yet (ROADMAP Queue 1 item 16).
+budget.  It runs inside a `task.execute` trace span with its stage and
+partition and a `task_logging.task_scope`, and bumps the
+`tasks_started`, `tasks_completed` (or `tasks_failed`) counters; its
+result carries the root operator's `MetricNode`, the task's metric tree.
+The JAX runtime's retry tiers, plan verifier and fusion pass are not in
+the port yet (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,23 +26,30 @@ from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ir import serde as ir_serde
 from auron_tpu_torch.ir.schema import Schema
 from auron_tpu_torch.memmgr import get_manager
-from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.ops.base import TaskContext
+from auron_tpu_torch.runtime import counters, task_logging, tracing
+from auron_tpu_torch.runtime.metrics import MetricNode
 from auron_tpu_torch.runtime.planner import PhysicalPlanner
 from auron_tpu_torch.runtime.resources import ResourceRegistry
 
 
 @dataclass
 class ExecutionResult:
+    """A task's batches and output schema, and its metric tree: the root
+    operator's `MetricNode` (the stage executor's result holds one node
+    of its own counters)."""
     batches: List[Batch]
     schema: Schema
-    metrics: Dict[str, int] = field(default_factory=dict)   # root operator
-    # every operator's counters, pre-order: (class name, counters)
-    operator_metrics: List[Tuple[str, Dict[str, int]]] = field(
-        default_factory=list)
+    metrics: MetricNode = field(default_factory=lambda: MetricNode("task"))
+
+    @property
+    def operator_metrics(self) -> List[Tuple[str, MetricNode]]:
+        """Every node of the tree, pre-order: (operator name, node)."""
+        return [(n.name, n) for n in _preorder(self.metrics)]
 
     def summed(self, name: str) -> int:
-        """A counter summed over every operator of the task."""
-        return sum(m.get(name, 0) for _, m in self.operator_metrics)
+        """A metric summed over every operator of the task."""
+        return sum(n.get(name) for n in _preorder(self.metrics))
 
     def to_numpy(self) -> Dict[str, tuple]:
         """{column name: (data, validity)} of all rows, on the host (a
@@ -53,29 +64,40 @@ class ExecutionResult:
         return out
 
 
+def _preorder(root: MetricNode) -> Iterator[MetricNode]:
+    stack = [root]
+    while stack:
+        node = stack.pop()
+        yield node
+        stack.extend(reversed(node.children))
+
+
 def execute_task(task: P.TaskDefinition,
                  resources: Optional[ResourceRegistry] = None,
                  device=None) -> ExecutionResult:
     dev = resolve_device(device)
-    root = PhysicalPlanner().create_plan(task.plan)
-    ctx = TaskContext(stage_id=task.stage_id,
-                      partition_id=task.partition_id,
-                      num_partitions=task.num_partitions,
-                      resources=resources if resources is not None
-                      else ResourceRegistry(), device=dev,
-                      mem_manager=get_manager())
-    out = [b for b in root.execute(ctx) if b.num_rows > 0]
-    return ExecutionResult(out, root.schema, dict(root.metrics),
-                           _operator_metrics(root))
-
-
-def _operator_metrics(root: Operator) -> List[Tuple[str, Dict[str, int]]]:
-    out, stack = [], [root]
-    while stack:
-        op = stack.pop()
-        out.append((type(op).__name__, dict(op.metrics)))
-        stack.extend(reversed(op.children))
-    return out
+    task_logging.install()
+    counters.bump("tasks_started")
+    tracing.stats_bump("attempts")
+    try:
+        with tracing.span("task.execute", cat="task",
+                          stage=task.stage_id,
+                          partition=task.partition_id), \
+                task_logging.task_scope(task.stage_id, task.partition_id):
+            root = PhysicalPlanner().create_plan(task.plan)
+            ctx = TaskContext(stage_id=task.stage_id,
+                              partition_id=task.partition_id,
+                              num_partitions=task.num_partitions,
+                              resources=resources if resources is not None
+                              else ResourceRegistry(), device=dev,
+                              mem_manager=get_manager())
+            out = [b for b in root.execute_with_metrics(ctx)
+                   if b.num_rows > 0]
+    except BaseException:
+        counters.bump("tasks_failed")
+        raise
+    counters.bump("tasks_completed")
+    return ExecutionResult(out, root.schema, root.metrics)
 
 
 def execute_plan(plan: P.PlanNode, partition_id: int = 0,

@@ -8,7 +8,10 @@ the sources in this checkout.  Phases, each fatal on failure:
 
 1. print the card (`nvidia-smi` name and power limit) and CUDA version,
    build both kernels (hash-pid and radix histogram, one nvcc each,
-   started together) and print the build time;
+   started together) under a trace scope and print the build time: the
+   trace validates and holds one `kernel.build` event for each source
+   that was not already built (both in a fresh checkout), none where
+   `build/` held both libraries;
 2. hold the hash-pid kernel bit-exact against its plain PyTorch version
    on the card, on full-range int64 keys with 10% nulls (n in 1, 3, 127,
    1025, 2^24+3: its vector path and its tail; n_parts in 1, 2, 4, 7,
@@ -47,8 +50,8 @@ the sources in this checkout.  Phases, each fatal on failure:
    all-zero words at 524288) against its plain version, its memory
    bound, `torch.bincount` and the launch floor, and a reduce task's
    sort under both strategies (pack-sort and multipass);
-9. profile the first sixteenth of one sort map task and one sort
-   reduce task;
+9. profile the first 64th of one sort map task and one sort reduce
+   task;
 10. run TPC-DS q96 whole through `execute_task_bytes` as the JAX
     package's converter lowers it: 8 map tasks (FFIReader -> Filter
     ss_quantity >= 20 AND ss_sales_price < 120.0 -> partial count ->
@@ -61,7 +64,7 @@ the sources in this checkout.  Phases, each fatal on failure:
 11. run q88c whole the same way: 8 map tasks (FFIReader -> Projection of
     three CASE band flags -> partial sums -> single-partition writer) and
     1 reduce task (final sums); check the three band counts exactly;
-    profile the first quarter of one map task;
+    profile the first eighth of one map task;
 12. run the three aggregate stages of q01's threshold subtree over the
     SF-10 store_returns rows (sampled from the store_sales rows as
     `it/datagen.py` samples them): 4 map tasks (scan -> partial Sum by
@@ -113,7 +116,7 @@ the sources in this checkout.  Phases, each fatal on failure:
     30 <= price <= 70 -> partial Count by (i_brand, i_class) -> hash(4)
     on both strings; 4 tasks: final -> Sort fetch 100 -> single; 1
     task), its 100 rows (of 171 groups, the null ones first) against
-    Python's sort; profile one q09c map task;
+    Python's sort; profile the first eighth of one q09c map task;
 17. run TPC-DS q01 whole over phase 12's store_returns and SF-10
     customer (500,000 rows, c_customer_id strings): two scans -> partial
     Sum -> hash(4); final Sum -> partial Average -> hash(2); the
@@ -181,9 +184,14 @@ the sources in this checkout.  Phases, each fatal on failure:
     serves each as a SourceTable, and `AuronSession.execute` tags,
     converts and runs each once on the stage path: equal to its phase's
     serial result and to numpy, neither kernel launched; then q01 with
-    `auron.spmd.singleDevice.enable` off, on the session's serial path:
-    equal to phase 17, both kernels launched, phase 17's launches where
-    the task counts are equal.  Then generate TPC-DS at SF 1, seed 7
+    `auron.spmd.singleDevice.enable` off, on the session's serial path,
+    traced (`auron.trace.enable`): equal to phase 17, both kernels
+    launched, phase 17's launches where the task counts are equal, its
+    trace valid and holding the `query`, `plan.convert`, `task.execute`,
+    `shuffle.push`, `shuffle.fetch.part` and `op.complete` families, its
+    EXPLAIN ANALYZE root's output rows its result's rows; print the
+    trace's summary (the top 10 spans by host time) and the EXPLAIN
+    ANALYZE text.  Then generate TPC-DS at SF 1, seed 7
     with the port's numpy generator (`it/datagen.py::generate`, the JAX
     package's tables bit for bit) and print the time it took; run all
     103 IT queries from their foreign plans through the port's
@@ -211,7 +219,12 @@ the sources in this checkout.  Phases, each fatal on failure:
     multiset to the same join uncapped and unbudgeted.  Each budgeted run
     must spill from its operator and (d) take the giant-group escape;
     print each run's wall time, spills, spilled bytes and tier, the
-    memory manager's pool peak and `torch.cuda.max_memory_allocated`;
+    memory manager's pool peak and `torch.cuda.max_memory_allocated`.
+    (c)'s budgeted run is traced: one `mem.spill` event for each spill
+    the memory manager arbitrated, one `spill.write` span for each spill
+    the window wrote (its `mem_spill_count`; the run's last spill, of
+    the staged tail, the operator writes without the manager, as in the
+    JAX package), each naming the tier it spilled to;
 29. float32 and decimal(p <= 18) columns: (a) phase 3's first map split
     (3,600,123 rows) with ss_sales_price as decimal(7,2) (its cents, the
     int64 unscaled value), three stage pairs through `execute_task_bytes`
@@ -229,8 +242,17 @@ the sources in this checkout.  Phases, each fatal on failure:
     sort by the key, checked against numpy under Spark's rules; (c) (a)'s
     group by customer from its foreign plan through
     `AuronSession.execute` (`TableEngine` serving the scan): the stage
-    path, no launch, equal to (a).
-Every phase from 3 to 27, and 29, runs under the default memory budget:
+    path, no launch, equal to (a);
+30. (run after phase 27's sweep, over its SF-1 catalog) tracing's cost
+    on the card: q01, q03, q65w, q75y and q23m through
+    `AuronSession.execute` on the stage path, each once to warm, then
+    three executes untraced and three traced: equal results, host syncs,
+    bytes uploaded and kernel launches, and an equal normalized EXPLAIN
+    ANALYZE, between the two; print both warm medians and their ratio.
+    Then q01, q03 and q65w with the stage executor off, traced, once
+    each: equal to the oracle's expected results, the trace valid; print
+    each serial wall time.
+Every phase from 3 to 27, 29 and 30 runs under the default memory budget:
 after each the memory manager's spill count is printed, and a spill
 fails the script.
 It prints the card's line and one JSON line describing each kernel, then,
@@ -276,6 +298,34 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def build_phase(K) -> None:
+    """Phase 1: build both kernels under a trace scope; the trace
+    validates and holds one `kernel.build` event for each source whose
+    library was not already built."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.runtime import tracing
+    todo = sorted(n for n, src in K.SOURCES.items()
+                  if not (K.BUILD_DIR / f"lib{n}.so").exists() or
+                  (K.BUILD_DIR / f"lib{n}.so").stat().st_mtime <
+                  src.stat().st_mtime)
+    t = time.perf_counter()
+    with conf.scoped({"auron.trace.enable": True}), \
+            tracing.trace_scope() as scope:
+        K.build()
+    secs = time.perf_counter() - t
+    doc = scope.recorder.to_chrome_trace()
+    errors = tracing.validate_chrome_trace(doc)
+    built = sorted(e["args"]["kernel"] for e in doc["traceEvents"]
+                   if e["name"] == "kernel.build")
+    if errors or built != todo:
+        raise AssertionError(f"phase 1: kernel.build events {built}, "
+                             f"want {todo}; trace errors {errors[:3]}")
+    print(f"phase 1: built {sorted(K.SOURCES)} in {secs:.2f} s; "
+          + (f"{len(built)} kernel.build events ({', '.join(built)}) in a "
+             f"valid trace" if built else "no kernel.build event: build/ "
+             "held both libraries"))
 
 
 def median_ms(fn, iters: int = 25, warmup: int = 3) -> float:
@@ -999,14 +1049,15 @@ def time_reduce_sort(svc, dev, card: str):
 
 
 def profile_sort_tasks(cols, valid, svc, plans, dev, card: str) -> None:
-    """Phase 9: a sixteenth of sort map task 0 (the first of 128 splits:
+    """Phase 9: a 64th of sort map task 0 (the first of 512 splits:
     reading a whole task's trace took 112-168 s on an H100, a quarter's
-    41-48 s, an eighth's 16-22 s) and one sort reduce task."""
+    41-48 s, an eighth's 16-22 s, a sixteenth's 8.4-10.6 s) and one
+    sort reduce task."""
     from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
     scratch = InProcessShuffleService()
-    profile_task("phase 9: sort map task 0, its first sixteenth",
+    profile_task("phase 9: sort map task 0, its first 64th",
                  lambda: map_task(0, cols, valid, scratch, dev, plans[0],
-                                  "sort", n_maps=16 * N_MAPS), card)
+                                  "sort", n_maps=64 * N_MAPS), card)
     profile_task("phase 9: sort reduce task 0",
                  lambda: sort_reduce_task(0, svc, plans[1], dev), card)
 
@@ -3780,7 +3831,8 @@ def run_sf10_session(queries, q01_serial, dev, K, card: str):
             raise AssertionError(f"phase 27: the SF-10 stage executes "
                                  f"launched {stage_launches}")
         K.reset_launches()
-        with conf.scoped({"auron.spmd.singleDevice.enable": False}):
+        with conf.scoped({"auron.spmd.singleDevice.enable": False,
+                          "auron.trace.enable": True}):
             res, secs = execute("q01")
     finally:
         C.unregister_provider(provider)
@@ -3796,11 +3848,67 @@ def run_sf10_session(queries, q01_serial, dev, K, card: str):
     same_result("the serial q01 against phase 17", res.columns,
                 queries["q01"][2])
     print(f"phase 27: q01 at SF 10 from its foreign plan on the session's "
-          f"serial path {secs:.3f} s, phase 17's result in {tasks} tasks "
-          f"(phase 17: {q01_serial[0]}), "
+          f"serial path {secs:.3f} s (traced), phase 17's result in {tasks} "
+          f"tasks (phase 17: {q01_serial[0]}), "
           f"{launches['hash_partition_ids_i64']} hash-pid, "
           f"{launches['radix_bucket_hist']} radix-hist launches | {card}")
+    report_serial_trace(27, "the serial q01 at SF 10", res, card)
     return stage_launches, launches
+
+
+SERIAL_TRACE_FAMILIES = ("query", "plan.convert", "task.execute",
+                         "shuffle.push", "shuffle.fetch.part", "op.complete")
+
+
+def checked_trace(phase: int, what: str, res, families=()) -> dict:
+    """The session result's trace as a Chrome-trace document: fails
+    unless it was recorded, validates, was not truncated and holds
+    every span family of `families`."""
+    from auron_tpu_torch.runtime import tracing
+    if res.trace is None:
+        raise AssertionError(f"phase {phase}: {what} recorded no trace")
+    doc = res.trace.to_chrome_trace()
+    errors = tracing.validate_chrome_trace(doc)
+    missing = set(families) - {e["name"] for e in doc["traceEvents"]}
+    if errors or missing or doc["otherData"]["trace_truncated"]:
+        raise AssertionError(
+            f"phase {phase}: {what}'s trace: errors {errors[:3]}, missing "
+            f"{sorted(missing)}, truncated "
+            f"{doc['otherData']['trace_truncated']}")
+    return doc
+
+
+def root_output_rows(res) -> int:
+    """`output_rows` of the merged tree of the query's root stage (the
+    group of the last task's tree, the root stage running last)."""
+    from auron_tpu_torch.runtime.explain_analyze import merge_metric_trees
+
+    def shape(n):
+        return n.name, tuple(shape(c) for c in n.children)
+    last = shape(res.metric_trees[-1])
+    return next(t.get("output_rows")
+                for t, _ in merge_metric_trees(res.metric_trees)
+                if shape(t) == last)
+
+
+def report_serial_trace(phase: int, what: str, res, card: str) -> None:
+    """Check a traced serial execute (checked_trace with the serial span
+    families; the EXPLAIN ANALYZE root's output rows its result's rows)
+    and print its trace summary and EXPLAIN ANALYZE."""
+    from auron_tpu_torch.runtime import tracing
+    doc = checked_trace(phase, what, res, SERIAL_TRACE_FAMILIES)
+    rows = root_output_rows(res)
+    if rows != res.num_rows:
+        raise AssertionError(f"phase {phase}: {what}: EXPLAIN ANALYZE "
+                             f"root output_rows {rows}, result "
+                             f"{res.num_rows} rows")
+    n_ops = sum(1 for e in doc["traceEvents"] if e["name"] == "op.complete")
+    print(f"phase {phase}: {what}: valid trace of "
+          f"{len(doc['traceEvents'])} events ({n_ops} op.complete), "
+          f"EXPLAIN ANALYZE root output_rows {rows} = its rows; spans by "
+          f"host time | {card}")
+    print(tracing.summarize_chrome_trace(doc, top=10))
+    print(res.explain_analyze())
 
 
 # ---------------------------------------------------------------------------
@@ -3921,6 +4029,178 @@ def profile_corpus_query(runner, dev, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 30: tracing on the card, over phase 27's SF-1 catalog
+# ---------------------------------------------------------------------------
+
+TRACED_QUERIES = ("q01", "q03", "q65w", "q75y", "q23m")
+TRACED_SERIAL = ("q01", "q03", "q65w")
+TRACED_RUNS = 3
+WRAPPER_BATCHES = 20_000             # batches a pull of the wrapper probe
+
+
+def wrapper_cost_ns(dev) -> float:
+    """Host nanoseconds that `Operator.execute_with_metrics` adds to one
+    batch with tracing off: the best of five pulls of WRAPPER_BATCHES
+    batches of one 8-row device batch through it, less the best of five
+    pulls of the same stream straight from `execute`.  The metric tree
+    and the span sites cost every query this much per batch per
+    operator, traced or not."""
+    from auron_tpu_torch.columnar.batch import from_numpy
+    from auron_tpu_torch.ops.base import Operator, TaskContext
+    schema = _schema(("k", "i64"))
+    b = from_numpy(schema, [np.arange(8, dtype=np.int64)], device=dev)
+
+    class Repeat(Operator):
+        def execute(self, ctx):
+            for _ in range(WRAPPER_BATCHES):
+                yield b
+
+    ctx = TaskContext(device=torch.device(dev))
+
+    def best(pull) -> int:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter_ns()
+            for _ in pull():
+                pass
+            times.append(time.perf_counter_ns() - t0)
+        return min(times)
+
+    op = Repeat(schema, [])
+    raw = best(lambda: op.execute(ctx))
+    wrapped = best(lambda: op.execute_with_metrics(ctx))
+    if op.metrics.get("output_batches") != 5 * WRAPPER_BATCHES:
+        raise AssertionError(f"phase 30: the wrapper probe counted "
+                             f"{op.metrics.get('output_batches')} batches")
+    return (wrapped - raw) / WRAPPER_BATCHES
+STAGE_TRACE_FAMILIES = ("query", "plan.convert", "spmd.execute",
+                        "spmd.launch", "spmd.ingest", "spmd.run",
+                        "spmd.gather")
+
+
+def run_phase30(runner, dev, K, card: str,
+                serial=TRACED_SERIAL) -> None:
+    """Phase 30: each of TRACED_QUERIES from its foreign plan through
+    `AuronSession.execute` over the corpus runner's catalog and engine:
+    once to warm, then TRACED_RUNS executes untraced and TRACED_RUNS
+    traced.  Fails unless each execute equals the expected results and
+    the two sets have equal results, host syncs, bytes uploaded, kernel
+    launches and normalized EXPLAIN ANALYZE, and every trace validates;
+    prints both warm medians and their ratio.  Then the host time the
+    operator wrapper adds a batch (`wrapper_cost_ns`), and each of `serial`
+    with the stage executor off, traced, once: equal to the expected
+    results, its trace valid; prints its wall time."""
+    import statistics
+
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend import converters as C
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.it import compare
+    from auron_tpu_torch.it import queries as Q
+    from auron_tpu_torch.it.compare import HostTable
+    from auron_tpu_torch.runtime.explain_analyze import metric_totals
+    started = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def execute(session, plan, name, ordered):
+        sync()
+        t0 = time.perf_counter()
+        res = session.execute(plan, dev)
+        sync()
+        secs = time.perf_counter() - t0
+        diff = compare.compare_tables(HostTable.from_result(res),
+                                      runner.expected[name],
+                                      ordered=ordered)
+        if diff is not None:
+            raise AssertionError(f"phase 30: {name}: {diff}")
+        return res, secs
+
+    provider = C.ScanSourceProvider()
+    C.register_provider(provider)
+    try:
+        for name in TRACED_QUERIES:
+            plan = Q.build(name, runner.catalog)
+            ordered = compare.plan_is_ordered(plan)
+            session = AuronSession(foreign_engine=runner.engine)
+            execute(session, plan, name, ordered)
+            sets = {}
+            for traced in (False, True):
+                K.reset_launches()
+                with conf.scoped({"auron.trace.enable": traced}):
+                    runs = [execute(session, plan, name, ordered)
+                            for _ in range(TRACED_RUNS)]
+                sets[traced] = (runs, dict(K.LAUNCHES))
+            (plain, plain_la), (traced, traced_la) = sets[False], sets[True]
+            for res, _ in traced:
+                checked_trace(30, name, res, STAGE_TRACE_FAMILIES
+                              if res.spmd else SERIAL_TRACE_FAMILIES)
+            for res, _ in plain:
+                if res.trace is not None:
+                    raise AssertionError(f"phase 30: {name}: a trace "
+                                         f"with tracing off")
+
+            def readings(runs):
+                return [(r.spmd, r.metrics.get("host_syncs"),
+                         r.metrics.get("bytes_uploaded"),
+                         r.explain_analyze(normalize=True)) for r, _ in runs]
+            if readings(plain) != readings(traced) or plain_la != traced_la:
+                raise AssertionError(
+                    f"phase 30: {name}: untraced {readings(plain)} "
+                    f"launches {plain_la}, traced {readings(traced)} "
+                    f"launches {traced_la}")
+            for (a, _), (b, _) in zip(plain, traced):
+                same_result(f"{name} traced against untraced", b.columns,
+                            a.columns, phase=30)
+            m0 = statistics.median(t for _, t in plain)
+            m1 = statistics.median(t for _, t in traced)
+            r = plain[0][0]
+            print(f"phase 30: {name} {'stage' if r.spmd else 'serial'} path, "
+                  f"{r.num_rows} rows, host syncs {r.metrics.get('host_syncs')}"
+                  f", uploaded {r.metrics.get('bytes_uploaded')} B, launches "
+                  f"{plain_la['hash_partition_ids_i64']}/"
+                  f"{plain_la['radix_bucket_hist']}, equal traced and not: "
+                  f"warm median untraced {m0:.6f} s "
+                  f"({'/'.join(f'{t:.6f}' for _, t in plain)}), traced "
+                  f"{m1:.6f} s ({'/'.join(f'{t:.6f}' for _, t in traced)}), "
+                  f"ratio {m1 / m0:.4f} | {card}")
+        per_batch = wrapper_cost_ns(dev)
+        print(f"phase 30: execute_with_metrics adds {per_batch:.1f} ns of "
+              f"host time a batch, tracing off | {card}")
+        serial_s = 0.0
+        for name in serial:
+            plan = Q.build(name, runner.catalog)
+            session = AuronSession(foreign_engine=runner.engine)
+            K.reset_launches()
+            with conf.scoped({"auron.spmd.singleDevice.enable": False,
+                              "auron.trace.enable": True}):
+                res, secs = execute(session, plan, name,
+                                    compare.plan_is_ordered(plan))
+            if res.spmd:
+                raise AssertionError(f"phase 30: serial {name} ran on the "
+                                     f"stage path")
+            doc = checked_trace(30, f"serial {name}", res,
+                                SERIAL_TRACE_FAMILIES)
+            serial_s += secs
+            batches = metric_totals(res.metric_trees)["output_batches"]
+            print(f"phase 30: {name} serial (traced) {secs:.4f} s, "
+                  f"{res.metrics['serial_tasks']} tasks, {res.num_rows} rows "
+                  f"equal to the expected results, valid trace of "
+                  f"{len(doc['traceEvents'])} events, launches "
+                  f"{K.LAUNCHES['hash_partition_ids_i64']}/"
+                  f"{K.LAUNCHES['radix_bucket_hist']}; {batches} operator "
+                  f"batches, so the wrapper's share "
+                  f"{batches * per_batch / 1e9:.6f} s | {card}")
+    finally:
+        C.unregister_provider(provider)
+    print(f"phase 30: serial runs {serial_s:.2f} s; phase 30 "
+          f"{time.perf_counter() - started:.1f} s | {card}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 28: serial SF-10 tasks under a memory budget
 # ---------------------------------------------------------------------------
 
@@ -3977,17 +4257,22 @@ def _same_tensors(what, got, exp, float_cols=()) -> None:
                                  f"from the unbudgeted run")
 
 
-def _spill_run(label, run, K, card: str, budgeted: bool):
+def _spill_run(label, run, K, card: str, budgeted: bool,
+               traced: bool = False):
     """One run of a spill-phase task: under the phase's budget or the
-    default one.  Prints wall time, spills, spilled bytes, the tier,
-    the manager's pool peak and the device peak; returns (result,
-    manager, launches)."""
+    default one, traced or not.  Prints wall time, spills, spilled
+    bytes, the tier, the manager's pool peak and the device peak;
+    returns (result, manager, launches, the trace's document or
+    None)."""
     from auron_tpu_torch.config import conf
     from auron_tpu_torch.memmgr import manager as M
+    from auron_tpu_torch.runtime import tracing
     kv = {"auron.memory.budget.bytes": SPILL_BUDGET,
           "auron.memory.spill.min.trigger.bytes": SPILL_TRIGGER} \
         if budgeted else {}
-    with conf.scoped(kv):
+    scope = tracing.trace_scope(recorder=tracing.TraceRecorder(
+        "phase-28")) if traced else contextlib.nullcontext()
+    with conf.scoped(kv), scope:
         mgr = M.reset_manager()
         K.reset_launches()
         torch.cuda.synchronize()
@@ -4009,7 +4294,34 @@ def _spill_run(label, run, K, card: str, budgeted: bool):
           f"peak {mgr.peak_used} bytes, device peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}")
     M.reset_manager()
-    return out, mgr, dict(K.LAUNCHES)
+    doc = scope.recorder.to_chrome_trace() if traced else None
+    return out, mgr, dict(K.LAUNCHES), doc
+
+
+def check_spill_trace(label, doc, mgr, res, card: str) -> None:
+    """A traced budgeted run: the trace validates, holds one `mem.spill`
+    event for each spill the memory manager arbitrated and one
+    `spill.write` span for each spill the task's operators wrote
+    (`mem_spill_count`), each naming a tier the task counted."""
+    from auron_tpu_torch.runtime import tracing
+    errors = tracing.validate_chrome_trace(doc)
+    events = [e for e in doc["traceEvents"] if e["name"] == "mem.spill"]
+    writes = [e for e in doc["traceEvents"] if e["name"] == "spill.write"]
+    tiers = {t for t in ("host", "file") if res.summed(f"mem_spill_{t}")}
+    named = {e["args"]["tier"] for e in writes}
+    count = res.summed("mem_spill_count")
+    if errors or doc["otherData"]["trace_truncated"] or \
+            len(events) != mgr.num_spills or len(writes) != count or \
+            named != tiers:
+        raise AssertionError(
+            f"phase 28: {label}: {len(events)} mem.spill events for "
+            f"{mgr.num_spills} manager spills, {len(writes)} spill.write "
+            f"spans (tiers {named}) for mem_spill_count {count} (tiers "
+            f"{tiers}), trace errors {errors[:3]}")
+    print(f"phase 28: {label} traced: {len(events)} mem.spill events = "
+          f"the manager's {mgr.num_spills} spills, {len(writes)} "
+          f"spill.write spans to the {', '.join(sorted(named))} tier = "
+          f"the task's mem_spill_count {count} | {card}")
 
 
 def giant_group_sides(seed: int):
@@ -4151,8 +4463,10 @@ def run_spill_phase(cols, valid, keys, window, dev, K, seed: int,
                      for b in svc.reduce_blocks(rid, p)]
     with recorded_shapes(K, shapes):
         runs = [_spill_run("(c) q65w's window task 0", window_task, K, card,
-                           b) for b in (True, False)]
+                           b, traced=b) for b in (True, False)]
     spilled("(c)", runs[0][1], runs[0][0][0], "WindowExec")
+    check_spill_trace("(c) q65w's window task 0", runs[0][3], runs[0][1],
+                      runs[0][0][0], card)
     out_schema = runs[1][0][1][0].schema
     _same_tensors("(c) the window task", *[
         _concat_columns(r[0][1], out_schema) for r in runs])
@@ -4785,10 +5099,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    t = time.perf_counter()
-    K.build()
-    print(f"phase 1: built {sorted(K.SOURCES)} in "
-          f"{time.perf_counter() - t:.2f} s")
+    build_phase(K)
 
     rng = np.random.default_rng(args.seed)
     max_err = check_kernel(K, dev, rng)
@@ -4932,10 +5243,11 @@ def main() -> int:
     print(f"phase 11: q88c bands {check_q88c(out, cols, valid)} equal to "
           f"numpy | {card}")
     q88_map = store_sales_plans("q88c")[0]
-    profile_task("phase 11: q88c map task 0, its first quarter",
+    # an eighth of the task: a quarter's trace took 8.8 s to read
+    profile_task("phase 11: q88c map task 0, its first eighth",
                  lambda: map_task(0, q88_cols, q88_valid,
                                   InProcessShuffleService(), dev, q88_map,
-                                  "q88c", n_maps=4 * N_MAPS), card)
+                                  "q88c", n_maps=8 * N_MAPS), card)
     no_spills("11", card)
 
     t = time.perf_counter()
@@ -5039,12 +5351,13 @@ def main() -> int:
     print(f"phase 16: q09c's three bands equal to numpy (counts "
           f"{check_q09c(out, q88_cols, q88_valid)}), peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
-    # a quarter of the task: reading a whole task's trace took 35-41 s
+    # an eighth of the task: reading a whole task's trace took 35-41 s,
+    # a quarter's 9.7 s
     q09c_map = q09c_plans()[0]
-    profile_task("phase 16: q09c map task 0, its first quarter",
+    profile_task("phase 16: q09c map task 0, its first eighth",
                  lambda: map_task(0, q88_cols, q88_valid,
                                   InProcessShuffleService(), dev, q09c_map,
-                                  "q09c", n_maps=4 * N_MAPS), card)
+                                  "q09c", n_maps=8 * N_MAPS), card)
     t = time.perf_counter()
     icols, ivalid = make_item(args.seed)
     print(f"phase 16: {len(icols[0])} item rows made in "
@@ -5217,9 +5530,11 @@ def main() -> int:
     del stage_inputs, q01_tables, jcols
     runner, corpus_launches = run_corpus(dev, K, card)
     profile_corpus_query(runner, dev, card)
-    del runner
     no_spills("27", card)
     print(f"phase 27: {time.perf_counter() - new_phases:.1f} s | {card}")
+    run_phase30(runner, dev, K, card)
+    del runner
+    no_spills("30", card)
 
     spill_launches = run_spill_phase(cols, valid, (item_k, store_k, store_v),
                                      spill_window, dev, K, args.seed, card,

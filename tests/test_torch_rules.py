@@ -103,6 +103,38 @@ def test_import_rules_cover_the_memory_manager():
             "auron_tpu_torch/memmgr/spill.py"} <= rel
 
 
+OBSERVABILITY = ("runtime/metrics.py", "runtime/counters.py",
+                 "runtime/events.py", "runtime/task_logging.py",
+                 "runtime/tracing.py", "runtime/explain_analyze.py",
+                 "trace.py")
+
+
+def test_import_rules_cover_the_observability_modules():
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"auron_tpu_torch/{m}" for m in OBSERVABILITY} <= rel
+
+
+SYNCS = ("synchronize", "item", "tolist", "cpu")
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY)
+def test_observability_never_syncs_the_device(module):
+    """No span, event, counter or metric reads the device back:
+    `MetricNode._settle`, at a node's first read, is the one place that
+    may (one `tolist` of the pending tensors)."""
+    tree = ast.parse((ROOT / "auron_tpu_torch" / module).read_text())
+    allowed = {("runtime/metrics.py", "_settle", "tolist")}
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and \
+                    isinstance(node.func, ast.Attribute) and \
+                    node.func.attr in SYNCS:
+                assert (module, fn.name, node.func.attr) in allowed, \
+                    f"{module}::{fn.name} calls .{node.func.attr}()"
+
+
 IT_FILES = sorted((ROOT / "auron_tpu_torch" / "it").rglob("*.py"))
 
 
