@@ -242,6 +242,33 @@ conf.define(
     "Allow partial-agg skipping to engage even when spills already "
     "exist; when false, a spilled agg never switches to passthrough.")
 conf.define(
+    "auron.plan.verify", False,
+    "Run the static plan verifier (auron_tpu_torch.analysis: schema "
+    "check, column resolution, partitioning, fusion and broadcast-join "
+    "contracts, lints, serde round trip) over every TaskDefinition "
+    "before its operator tree is built, once per plan object; an error "
+    "diagnostic aborts the task with PlanVerificationError, every "
+    "diagnostic logged with its node path through the "
+    "auron_tpu_torch.analysis logger.  Off by default (the front end is "
+    "trusted); the test suite turns it on (tests/conftest.py).")
+conf.define(
+    "auron.fuse.enable", True,
+    "Pipeline-fragment fusion (runtime/fusion.py): lower maximal chains "
+    "of row-local operators (projection, filter, coalesce_batches, "
+    "limit, expand, rename_columns) into one FusedFragment operator "
+    "(ops/fused.py) that makes one pass over each batch with one "
+    "compaction, and let a partial aggregation take a one-lane, "
+    "limit-free fragment into its own pass.  Off gives the unfused "
+    "operator tree.")
+conf.define(
+    "auron.shuffle.pid.fuse.enable", True,
+    "Compute an exchange's partition ids inside the fused fragment "
+    "that feeds it, before the fragment's compaction, as one more "
+    "column the shuffle writer pops, instead of in the writer over the "
+    "compacted batch.  Applies where the writer's child is a fused "
+    "fragment and the keys can run inside it; the ids come from the "
+    "same PartitionIdComputer either way.")
+conf.define(
     "auron.trace.enable", False,
     "Record a query-lifecycle trace per AuronSession.execute "
     "(runtime/tracing.py): spans for plan conversion, the stage "

@@ -326,6 +326,30 @@ class RssShuffleWriter(PlanNode):
 
 @register
 @dataclass(frozen=True)
+class FragmentInput(PlanNode):
+    """The leaf of a FusedFragment body: where the fragment's real input
+    (`FusedFragment.child`) enters the fused chain, with the chain's
+    input schema, so that the body alone infers and serializes."""
+    kind: ClassVar[str] = "fragment_input"
+    schema: Schema = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
+class FusedFragment(PlanNode):
+    """A maximal chain of row-local operators (projection, filter,
+    coalesce_batches, limit, expand, rename_columns) run as one operator
+    (ops/fused.py).  `body` is the original chain with its deepest child
+    replaced by a FragmentInput; `child` is the fragment's real input,
+    so `unfuse_plan` restores the exact unfused tree."""
+    kind: ClassVar[str] = "fused_fragment"
+    child: PlanNode = None  # type: ignore[assignment]
+    body: PlanNode = None  # type: ignore[assignment]
+    schema: Schema = None  # type: ignore[assignment]
+
+
+@register
+@dataclass(frozen=True)
 class TaskDefinition(Node):
     """The unit shipped from a front end to the runtime."""
     kind: ClassVar[str] = "task_definition"
@@ -334,3 +358,28 @@ class TaskDefinition(Node):
     partition_id: int = 0
     num_partitions: int = 1
     host_threads: int = 0     # 0 = config default
+
+
+def plan_children(plan: Node):
+    """Direct child plans, descending through wrapper Nodes (UnionInput,
+    JoinOn, Partitioning) but not through expressions; iterative, so a
+    long wrapper chain never meets the recursion limit."""
+    out = []
+    stack = list(reversed(plan.children_nodes()))
+    while stack:
+        c = stack.pop()
+        if isinstance(c, PlanNode):
+            out.append(c)
+        elif isinstance(c, Node) and not isinstance(c, Expr):
+            stack.extend(reversed(c.children_nodes()))
+    return out
+
+
+def walk(plan: Node):
+    """Pre-order traversal over plan nodes only (not exprs), on an
+    explicit stack."""
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        yield node
+        stack.extend(reversed(plan_children(node)))

@@ -120,6 +120,9 @@ class DataType:
     @property
     def is_stringlike(self) -> bool:
         return self.id in (TypeId.STRING, TypeId.BINARY)
+    @property
+    def is_nested(self) -> bool:
+        return self.id in (TypeId.LIST, TypeId.MAP, TypeId.STRUCT)
 
     def torch_dtype(self) -> torch.dtype:
         """The device dtype of a flat column of this type (a string type

@@ -32,6 +32,15 @@ skipping rule of the JAX package applies: once enough rows came in and
 the groups are nearly as many as the rows, the operator emits what it
 holds and passes the rest of its input through, grouped batch by batch.
 
+The partial-aggregation prologue (`auron.fuse.enable`, the JAX
+package's composition): over a fused fragment child of one lane and no
+limit, outside final mode and partial skipping, the operator pulls the
+fragment's child itself, runs the fragment's stages uncompacted
+(`FusedFragmentExec.apply_stages`) and groups under the fragment's live
+mask (`group_reduce(..., live=...)`), so the fragment's compaction goes
+away; the fragment's node counts `fused_batches` and
+`fused_into_parent`, and yields no batch.
+
 Spill: the operator is a memory consumer.  Under pressure its staged
 groups merge into one key-sorted state run and spill (memmgr/spill.py);
 at the end the runs merge through the sort's `HostKeyMerger`, each
@@ -51,7 +60,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 
 from auron_tpu_torch.columnar.batch import (
-    Batch, Column, DeviceColumn, bucket_capacity, concat_batches,
+    Batch, Column, DeviceColumn, bucket_capacity, concat_batches, flat,
 )
 from auron_tpu_torch.config import conf
 from auron_tpu_torch.exprs.compiler import build_evaluator
@@ -62,7 +71,7 @@ from auron_tpu_torch.ops.agg.functions import AggSpec, make_spec
 from auron_tpu_torch.ops.base import Operator, StagingOperator, TaskContext
 from auron_tpu_torch.ops.sort_keys import (
     encode_sort_keys, encode_sort_keys_bits, keys_equal_prev,
-    lexsort_indices, normalize_f64, value_bits,
+    lexsort_indices, lexsort_indices_live, normalize_f64, value_bits,
 )
 
 # staged grouped batches merged at once (the JAX package's
@@ -113,6 +122,34 @@ class AggExec(StagingOperator):
             exec_mode == "partial" and \
             bool(conf.get("auron.partial.agg.skipping.enable"))
         self._dev = torch.device("cpu")
+        self._prologue = self._fused_prologue(child, grouping, aggs,
+                                              in_schema)
+
+    def _fused_prologue(self, child: Operator, grouping, aggs,
+                        in_schema: Schema):
+        """The partial-aggregation prologue: a composable fused fragment
+        child (one lane, no limit) whose stages this operator runs
+        itself, grouping the fragment's uncompacted columns under its
+        live mask, so the fragment's compaction goes away.  The JAX
+        package's conditions: not in final mode, no partial skipping, no
+        host aggregate (the port has none), `auron.fuse.enable`, and
+        every key and aggregate input able to run inside the fragment."""
+        from auron_tpu_torch.ops.fused import FusedFragmentExec
+        if self.exec_mode == "final" or self.supports_partial_skipping or \
+                not bool(conf.get("auron.fuse.enable")) or \
+                not isinstance(child, FusedFragmentExec) or \
+                not child.composable():
+            return None
+        from auron_tpu_torch.runtime.fusion import (
+            _static_host_cols, device_capable, tree_has_row_base,
+        )
+        host = _static_host_cols(in_schema)
+        exprs = list(grouping) + [x for a in aggs for x in a.children]
+        if any(tree_has_row_base(x) or not device_capable(x, in_schema, host)
+               for x in exprs):
+            return None
+        child.metrics.set("fused_into_parent", 1)
+        return child
 
     # -- grouping ------------------------------------------------------
 
@@ -136,6 +173,24 @@ class AggExec(StagingOperator):
         cols, n_groups, cap = group_reduce(keys, vcols, num_rows,
                                            self.specs, merge, device)
         return Batch(self.state_schema, cols, n_groups, cap)
+
+    def _prologue_groups(self, ctx: TaskContext) -> Iterator[Batch]:
+        """The prologue's input loop: each batch of the fragment's child
+        through the fragment's stages, uncompacted, and grouped under
+        the live mask; a batch that keeps no row groups to nothing."""
+        frag = self._prologue
+        for b in frag.child_stream(ctx):
+            if b.num_rows == 0:
+                continue
+            cols, live = frag.apply_stages(b)
+            frag.count("fused_batches")
+            keys, vcols = self._eval(
+                Batch(frag.schema, cols, b.num_rows, b.capacity), False)
+            out, n_groups, cap = group_reduce(keys, vcols, b.num_rows,
+                                              self.specs, False, ctx.device,
+                                              live)
+            if n_groups:
+                yield Batch(self.state_schema, out, n_groups, cap)
 
     # -- staged accumulation -------------------------------------------
 
@@ -175,7 +230,12 @@ class AggExec(StagingOperator):
         dev = ctx.device
         input_rows = 0
         passthrough = False
-        stream = self.child_stream(ctx)   # one iterator: both loops share
+        if self._prologue is not None:
+            for g in self._prologue_groups(ctx):
+                self._stage(g, dev)
+            stream = iter(())
+        else:
+            stream = self.child_stream(ctx)   # both loops share it
         for b in stream:
             if b.num_rows == 0:
                 continue
@@ -276,7 +336,8 @@ class AggExec(StagingOperator):
 
 def group_reduce(keys: List[Column],
                  value_cols: List[List[Column]], num_rows: int,
-                 specs: List[AggSpec], merge: bool, device: torch.device
+                 specs: List[AggSpec], merge: bool, device: torch.device,
+                 live: Optional[torch.Tensor] = None
                  ) -> Tuple[List[Column], int, int]:
     """Sort-based group reduction of the first `num_rows` rows (with no
     keys, `_global_reduce` on `device`), as the JAX package's
@@ -284,18 +345,38 @@ def group_reduce(keys: List[Column],
     stably lexsorted, and a row whose words differ from the previous
     row's starts a group.  Returns (key columns + state columns at
     capacity bucket_capacity(n_groups), n_groups, that capacity); the
-    group count is read back to the host once."""
+    group count is read back to the host once.
+
+    With a `live` mask (the fused prologue's) only its rows group: the
+    dead rows sort last with their words zeroed, so they form one group
+    after the live ones, which reduces into the slot past the last group
+    (the capacity holds n_groups + 1) and is dropped, data and validity.
+    The live groups, and each group's rows in input order, are those of
+    the compacted rows."""
     n = num_rows
     if not keys:
-        return _global_reduce(value_cols, n, specs, merge, device)
-    live = [k.prefix(n) for k in keys]
-    words = encode_sort_keys(live, [(True, True)] * len(live))
-    perm = lexsort_indices(words, n, n, encode_sort_keys_bits(live))
-    boundary = ~keys_equal_prev([w[perm] for w in words])
+        return _global_reduce(value_cols, n, specs, merge, device, live)
+    kcols = [k.prefix(n) for k in keys]
+    words = encode_sort_keys(kcols, [(True, True)] * len(kcols))
+    bits = encode_sort_keys_bits(kcols)
+    if live is None:
+        perm = lexsort_indices(words, n, n, bits)
+        boundary = ~keys_equal_prev([w[perm] for w in words])
+        starts = boundary
+        spare = 0
+    else:
+        live = live[:n]
+        words = [torch.where(live, w, 0) for w in words]
+        perm = lexsort_indices_live(words, live, bits)
+        live_sorted = live[perm]
+        boundary = ~keys_equal_prev([live_sorted] +
+                                    [w[perm] for w in words])
+        starts = boundary & live_sorted
+        spare = 1
     seg = torch.cumsum(boundary, 0) - 1
-    first = torch.nonzero(boundary).squeeze(1)
+    first = torch.nonzero(starts).squeeze(1)
     n_groups = int(first.shape[0])
-    cap = bucket_capacity(n_groups)
+    cap = bucket_capacity(n_groups + spare)
     dev = perm.device
     valid = torch.arange(cap, device=dev) < n_groups
     key_src = torch.nn.functional.pad(perm[first], (0, cap - n_groups))
@@ -304,10 +385,19 @@ def group_reduce(keys: List[Column],
         scols = [c.take(perm) for c in cols]
         states = spec.merge_segments(scols, seg, cap) if merge else \
             spec.update_segments(scols, seg, cap)
-        # rows past the group count hold reductions of nothing
-        out.extend(DeviceColumn(s.dtype, s.data, s.validity & valid)
-                   for s in states)
+        out.extend(_past_groups_dropped(states, valid, live is not None))
     return out, n_groups, cap
+
+
+def _past_groups_dropped(states: List[DeviceColumn], valid: torch.Tensor,
+                         masked: bool) -> List[DeviceColumn]:
+    """States with the rows past the group count null: they hold
+    reductions of nothing, and under a live mask the dead rows' group,
+    whose data is zeroed too."""
+    if masked:
+        return [flat(s.dtype, s.data, s.validity & valid) for s in states]
+    return [DeviceColumn(s.dtype, s.data, s.validity & valid)
+            for s in states]
 
 
 def _sum_dtype(a: AggExpr, name: str, exec_mode: str, in_schema: Schema
@@ -330,19 +420,27 @@ def _group_key(k: Column) -> Column:
 
 
 def _global_reduce(value_cols: List[List[Column]], n: int,
-                   specs: List[AggSpec], merge: bool, device: torch.device
+                   specs: List[AggSpec], merge: bool, device: torch.device,
+                   live: Optional[torch.Tensor] = None
                    ) -> Tuple[List[DeviceColumn], int, int]:
     """group_reduce with no keys: the first n rows (n > 0) are segment 0,
-    one group, no sort and no host read."""
-    cap = bucket_capacity(1)
-    seg = torch.zeros(n, dtype=torch.int64, device=device)
+    one group, no sort and no host read.  Under a `live` mask the dead
+    rows reduce into segment 1, dropped (the capacity holds it); the
+    count of live rows is read back once, and with none there is no
+    group."""
+    cap = bucket_capacity(1 if live is None else 2)
+    if live is None:
+        seg = torch.zeros(n, dtype=torch.int64, device=device)
+    else:
+        live = live[:n]
+        if not int(live.sum()):
+            return [], 0, cap
+        seg = (~live).to(torch.int64)
     first = torch.arange(cap, device=device) < 1
     out: List[DeviceColumn] = []
     for spec, cols in zip(specs, value_cols):
-        live = [c.prefix(n) for c in cols]
-        states = spec.merge_segments(live, seg, cap) if merge else \
-            spec.update_segments(live, seg, cap)
-        # rows past the one group hold reductions of nothing
-        out.extend(DeviceColumn(s.dtype, s.data, s.validity & first)
-                   for s in states)
+        rows = [c.prefix(n) for c in cols]
+        states = spec.merge_segments(rows, seg, cap) if merge else \
+            spec.update_segments(rows, seg, cap)
+        out.extend(_past_groups_dropped(states, first, live is not None))
     return out, 1, cap

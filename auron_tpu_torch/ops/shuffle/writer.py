@@ -25,6 +25,14 @@ the `bytes` column of the writer's output counts the block tensors'
 bytes instead of frame bytes (a string column W + 4 + 1 a row), until
 the wire frames come (ROADMAP Queue 1 item 14).
 
+Pid fusion (`auron.shuffle.pid.fuse.enable`, on by default, as in the
+JAX package): where the writer's child is a fused fragment and the keys
+can run inside it, the fragment appends the ids as a last column
+(`ops/fused.py::PID_FIELD`), computed through the same
+`PartitionIdComputer`, so a single int64, timestamp or decimal key
+still launches the hash-pid kernel; the writer pops the column and
+counts `pid_fused_batches`.
+
 Observability, under the JAX package's names: the writer's node counts
 `shuffle_write_rows`, `shuffle_write_time_ns` (host clock) and
 `shuffle_write_bytes`, and the process counter `shuffle_bytes_pushed`
@@ -47,9 +55,11 @@ from auron_tpu_torch.columnar.batch import (
     Batch, Column, DeviceColumn, DeviceStringColumn, bucket_capacity,
     concat_batches, from_numpy,
 )
+from auron_tpu_torch.config import conf
 from auron_tpu_torch.ir.plan import Partitioning
 from auron_tpu_torch.ir.schema import DataType, Field, Schema
 from auron_tpu_torch.ops.base import Operator, TaskContext
+from auron_tpu_torch.ops.fused import FusedFragmentExec
 from auron_tpu_torch.ops.kernels_cuda import HIST_MAX_BITS, radix_bucket_hist
 from auron_tpu_torch.ops.radix_sort import ceil_log2
 from auron_tpu_torch.ops.shuffle.partitioner import PartitionIdComputer
@@ -112,15 +122,26 @@ class RssShuffleWriterExec(Operator):
                          [child])
         self.partitioning = partitioning
         self.rss_resource_id = rss_resource_id
+        self.child_schema = child.schema
         self._computer = PartitionIdComputer(partitioning, child.schema)
         self._sizes = sizes_by_hist if ceil_log2(
             partitioning.num_partitions) <= HIST_MAX_BITS \
             else sizes_by_bincount
+        # pid fusion (`auron.shuffle.pid.fuse.enable`): a fused fragment
+        # child computes the ids itself, as one more column
+        self._pid_fused = False
+        if partitioning.num_partitions > 1 and \
+                bool(conf.get("auron.shuffle.pid.fuse.enable")) and \
+                isinstance(child, FusedFragmentExec):
+            self._pid_fused = child.enable_pid_fusion(partitioning)
 
-    def _partition(self, b: Batch) -> Tuple[np.ndarray, List[List[Column]]]:
+    def _partition(self, b: Batch, pids=None
+                   ) -> Tuple[np.ndarray, List[List[Column]]]:
         """Rows per partition, and each column's rows cut into one part
-        per partition."""
-        pids = self._computer(b)
+        per partition; `pids` the rows' ids where a fused fragment
+        computed them."""
+        if pids is None:
+            pids = self._computer(b)
         order = torch.sort(pids, stable=True).indices
         sizes = self._sizes(pids, self.partitioning.num_partitions)
         self.count(self._sizes.__name__)
@@ -138,7 +159,14 @@ class RssShuffleWriterExec(Operator):
             if b.num_rows == 0:
                 continue
             t0 = time.perf_counter_ns()
-            sizes, parts = self._partition(b)
+            pids = None
+            if self._pid_fused:
+                # the fragment's ids: pop the column
+                pids = b.columns[-1].data[:b.num_rows]
+                b = Batch(self.child_schema, b.columns[:-1], b.num_rows,
+                          b.capacity)
+                self.count("pid_fused_batches")
+            sizes, parts = self._partition(b, pids)
             # blocks hold their rows unpadded
             row_bytes = b.mem_bytes() // b.capacity
             for pid in np.flatnonzero(sizes):

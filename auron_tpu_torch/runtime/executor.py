@@ -9,8 +9,11 @@ budget.  It runs inside a `task.execute` trace span with its stage and
 partition and a `task_logging.task_scope`, and bumps the
 `tasks_started`, `tasks_completed` (or `tasks_failed`) counters; its
 result carries the root operator's `MetricNode`, the task's metric tree.
-The JAX runtime's retry tiers, plan verifier and fusion pass are not in
-the port yet (ROADMAP Queue 1 item 16).
+A task's operators are built as the JAX package builds them
+(`PhysicalPlanner.create_verified_plan`): its plan verified when
+`auron.plan.verify` is set, its row-local chains fused when
+`auron.fuse.enable` is (the default), then built.  The JAX runtime's
+retry tiers are not in the port yet (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ def execute_task(task: P.TaskDefinition,
                           stage=task.stage_id,
                           partition=task.partition_id), \
                 task_logging.task_scope(task.stage_id, task.partition_id):
-            root = PhysicalPlanner().create_plan(task.plan)
+            root = PhysicalPlanner().create_verified_plan(task)
             ctx = TaskContext(stage_id=task.stage_id,
                               partition_id=task.partition_id,
                               num_partitions=task.num_partitions,

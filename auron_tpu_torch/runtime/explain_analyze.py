@@ -6,7 +6,11 @@ The session's collected trees (one per (stage, partition) task, the
 exchange map tasks' among them) are merged by structure (metric trees
 mirror the operator tree, so the tasks of one plan share a shape) and
 rendered indented with the rows, batches, compute time, spill and
-memory metrics inline.  Compute times are the host clock's
+memory metrics inline, `FusedFragmentExec` boundaries included, as the
+JAX package renders them: a fragment is one node over its real input,
+with `ops_fused`, `fused_batches` and, where they apply,
+`pid_fused_batches` and `fused_into_parent` (a fragment an aggregation
+took in as its prologue yields no batch of its own).  Compute times are the host clock's
 (`elapsed_compute_ns`, ops/base.py): on a GPU the host's dispatch plus
 any synchronization inside the operator, not device time.
 

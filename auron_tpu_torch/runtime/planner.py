@@ -1,14 +1,24 @@
 """Physical planner: plan IR -> operator tree (counterpart of
-auron_tpu/runtime/planner.py), one arm per plan-node kind of this slice.
+auron_tpu/runtime/planner.py), one arm per plan-node kind of the port.
+
+`create_verified_plan` is the task's pipeline, as in the JAX package:
+verify (`auron.plan.verify`, in a `plan.verify` span), fuse
+(`auron.fuse.enable`, in a `plan.fuse` span; fused plans cached per
+plan object, the declined chains logged at DEBUG), then build.  Without
+fusion a Projection over a Filter folds into one FilterExec, as the JAX
+planner folds it.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict
 
+from auron_tpu_torch.config import conf
 from auron_tpu_torch.ir import plan as P
 from auron_tpu_torch.ops.agg.exec import AggExec
 from auron_tpu_torch.ops.base import Operator
+from auron_tpu_torch.ops.fused import FusedFragmentExec
 from auron_tpu_torch.ops.basic import (
     CoalesceBatchesExec, DebugExec, EmptyPartitionsExec, ExpandExec,
     FilterExec, LimitExec, ProjectExec, RenameColumnsExec, UnionExec,
@@ -21,6 +31,7 @@ from auron_tpu_torch.ops.scan.ipc import FFIReaderExec, IpcReaderExec
 from auron_tpu_torch.ops.shuffle.writer import RssShuffleWriterExec
 from auron_tpu_torch.ops.sort import SortExec
 from auron_tpu_torch.ops.window.exec import WindowExec
+from auron_tpu_torch.runtime import tracing
 
 
 class PhysicalPlanner:
@@ -72,6 +83,8 @@ class PhysicalPlanner:
             "broadcast_join_build_hash_map": lambda n:
                 BroadcastJoinBuildHashMapExec(self.create_plan(n.child),
                                               n.keys, n.cache_id),
+            "fused_fragment": lambda n: FusedFragmentExec(
+                self.create_plan(n.child), n),
         }
 
     def _projection(self, n: P.Projection) -> Operator:
@@ -81,6 +94,27 @@ class PhysicalPlanner:
                               n.child.predicates, exprs=n.exprs,
                               names=n.names)
         return ProjectExec(self.create_plan(n.child), n.exprs, n.names)
+
+    def create_verified_plan(self, task: P.TaskDefinition) -> Operator:
+        """The operator tree of a task: its plan verified when
+        `auron.plan.verify` is set (PlanVerificationError on an error
+        diagnostic), then fused when `auron.fuse.enable` is, then
+        built."""
+        if conf.get("auron.plan.verify"):
+            from auron_tpu_torch.analysis import verify_task
+            with tracing.span("plan.verify", cat="plan",
+                              stage=task.stage_id,
+                              partition=task.partition_id):
+                verify_task(task)
+        plan = task.plan
+        if conf.get("auron.fuse.enable"):
+            from auron_tpu_torch.runtime.fusion import fuse_plan_cached
+            with tracing.span("plan.fuse", cat="plan"):
+                plan, report = fuse_plan_cached(plan)
+            alog = logging.getLogger("auron_tpu_torch.analysis")
+            for d in report.declined:
+                alog.debug("fusion: %s", d)
+        return self.create_plan(plan)
 
     def create_plan(self, node: P.PlanNode) -> Operator:
         if node.kind in ("parquet_scan", "orc_scan"):

@@ -4,7 +4,12 @@
     python3 chip_smoke.py [--rows N] [--seed S]
 
 Needs one CUDA card and the CUDA toolkit; builds the port's kernels from
-the sources in this checkout.  Phases, each fatal on failure:
+the sources in this checkout.  Every task runs as the port runs by
+default (`PhysicalPlanner.create_verified_plan`): its row-local chains
+fused (`auron.fuse.enable`; of phases 3-24 only q39v's exchanges, over
+filter <- projection with their partition ids fused, and q27r's partial
+aggregations, over expand <- projection, hold such a chain), the
+verifier off unless a phase turns it on.  Phases, each fatal on failure:
 
 1. print the card (`nvidia-smi` name and power limit) and CUDA version,
    build both kernels (hash-pid and radix histogram, one nvcc each,
@@ -206,7 +211,7 @@ the sources in this checkout.  Phases, each fatal on failure:
     if any query raised or differed, print the least, median and most of
     each of those readings, and profile the warm execute of the query
     with the largest warm time;
-28. run four serial SF-10 tasks through `execute_task_bytes`, each once
+28. run five serial SF-10 tasks through `execute_task_bytes`, each once
     under a 32 MiB memory budget (`auron.memory.budget.bytes`, spill
     trigger 4 MiB) and once under the default budget: (a) phase 3's
     first map split sorted by phase 7's keys, equal row for row; (b) the
@@ -216,8 +221,12 @@ the sources in this checkout.  Phases, each fatal on failure:
     (d) a sort-merge inner join whose build side has 2^20 rows, 2^19 of
     them under one key, and whose probe side has 2^15 rows, 8 of them on
     that key, under `auron.smj.window.max.rows` 2^16, equal as a row
-    multiset to the same join uncapped and unbudgeted.  Each budgeted run
-    must spill from its operator and (d) take the giant-group escape;
+    multiset to the same join uncapped and unbudgeted; (e) (b)'s
+    aggregation over the rows with a price of at least 20 and the price
+    less 20 (Filter -> Projection), under the budget fused (the
+    aggregation's prologue) and unfused, and unbudgeted, equal as (b).
+    Each budgeted run must spill from its operator and (d) take the
+    giant-group escape;
     print each run's wall time, spills, spilled bytes and tier, the
     memory manager's pool peak and `torch.cuda.max_memory_allocated`.
     (c)'s budgeted run is traced: one `mem.spill` event for each spill
@@ -252,7 +261,24 @@ the sources in this checkout.  Phases, each fatal on failure:
     Then q01, q03 and q65w with the stage executor off, traced, once
     each: equal to the oracle's expected results, the trace valid; print
     each serial wall time.
-Every phase from 3 to 27, 29 and 30 runs under the default memory budget:
+31. (after phase 30, over phase 27's SF-1 catalog) the task pipeline:
+    q01, q03, q65w, q96, q27r and q74y from their foreign plans through
+    `AuronSession.execute` on the serial path with the plan verifier on
+    (`auron.plan.verify`), fusion off and then on, each once traced
+    with its host syncs counted (`torch.cuda.set_sync_debug_mode`'s
+    warning on every synchronizing call) and then timed untraced in
+    turns (off, on, on, off): equal fused and unfused and to the
+    expected results, hash-pid launched as often fused as unfused; print
+    for each the fragment operators, the operators fused, the pid-fused
+    batches, the prologue-fused aggregations, each kernel's launches,
+    the host syncs, the walls, and the verifier's and the fusion pass's
+    host time (their `plan.verify` and `plan.fuse` spans).  Then the
+    partial-aggregation prologue at SF 10: phase 3's first map split
+    through Filter -> Projection -> partial Agg -> hash(200) by
+    customer, fused (the aggregation takes the fragment's stages in, no
+    compaction) and unfused, in turns: equal blocks, the same launches,
+    one of each kernel a writer batch;
+Every phase from 3 to 27, 29, 30 and 31 runs under the default memory budget:
 after each the memory manager's spill count is printed, and a spill
 fails the script.
 It prints the card's line and one JSON line describing each kernel, then,
@@ -4201,6 +4227,288 @@ def run_phase30(runner, dev, K, card: str,
 
 
 # ---------------------------------------------------------------------------
+# Phase 31: the task pipeline (verify -> fuse -> build) on the serial path
+# ---------------------------------------------------------------------------
+
+# q01, q03, q65w and q96 hold no chain of two row-local operators; q27r's
+# partial aggregations sit over expand <- projection fragments, q74y's
+# exchanges over projection <- filter ones, their ids fused
+FUSION_QUERIES = ("q01", "q03", "q65w", "q96", "q27r", "q74y")
+
+
+def _metric_nodes(root):
+    stack = [root]
+    while stack:
+        node = stack.pop()
+        yield node
+        stack.extend(node.children)
+
+
+def fusion_readings(res) -> dict:
+    """What fusion did in one serial execute, over its task trees: the
+    fragment operators, the operators they fused, the batches whose
+    partition ids a fragment computed, and the fragments an aggregation
+    took in as its prologue."""
+    out = {"fragments": 0, "ops_fused": 0, "pid_fused_batches": 0,
+           "prologues": 0}
+    for tree in res.metric_trees:
+        for n in _metric_nodes(tree):
+            if n.name == "FusedFragmentExec":
+                out["fragments"] += 1
+                out["ops_fused"] += n.get("ops_fused")
+                out["prologues"] += n.get("fused_into_parent")
+            elif n.name == "RssShuffleWriterExec":
+                out["pid_fused_batches"] += n.get("pid_fused_batches")
+    return out
+
+
+@contextlib.contextmanager
+def counted_syncs(cuda: bool):
+    """Count the host's waits on the card inside the block: every
+    synchronizing CUDA call (a read back of a count, `nonzero`, `.item`,
+    a device-to-host copy) raises a warning under
+    `torch.cuda.set_sync_debug_mode("warn")`; the block's list holds one
+    entry a wait (none without a card)."""
+    import warnings
+    waits: list = []
+    if not cuda:
+        yield waits
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield waits
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits.extend(w for w in caught
+                 if "synchroniz" in str(w.message).lower())
+
+
+def _span_s(doc, name: str) -> float:
+    """Seconds of host time in the trace's spans of one name."""
+    return sum(e.get("dur", 0.0) for e in doc["traceEvents"]
+               if e["name"] == name and e.get("ph") == "X") / 1e6
+
+
+def run_phase31(runner, cols, valid, dev, K, card: str) -> dict:
+    """Phase 31: (a) each of FUSION_QUERIES from its foreign plan through
+    `AuronSession.execute` on the serial path (the stage executor off)
+    over phase 27's SF-1 catalog, with the verifier on and fusion off,
+    then on: once traced with the syncs counted (`counted_syncs`; the
+    verifier's and the fusion pass's host time from the `plan.verify`
+    and `plan.fuse` spans), then timed untraced in turns (off, on, on,
+    off); every execute equal to the expected results, and fused equal
+    to unfused; prints what fusion did (fragments, operators fused,
+    pid-fused batches, prologues), each kernel's launches, the syncs and
+    the walls.  (b) the partial-
+    aggregation prologue at SF 10: phase 3's first map split through
+    Filter -> Projection -> partial Agg -> hash exchange by customer,
+    fused (the aggregation takes the fragment in) and unfused, equal
+    blocks (keys and counts exact, sums to 1e-9) and launches.  Returns
+    the launches of every run, by its name."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend import converters as C
+    from auron_tpu_torch.frontend.session import AuronSession
+    from auron_tpu_torch.it import compare
+    from auron_tpu_torch.it import queries as Q
+    from auron_tpu_torch.it.compare import HostTable
+    started = time.perf_counter()
+    all_launches = {}
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def execute(plan, name, ordered, fuse, traced):
+        session = AuronSession(foreign_engine=runner.engine)
+        with conf.scoped({"auron.spmd.singleDevice.enable": False,
+                          "auron.plan.verify": True,
+                          "auron.fuse.enable": fuse,
+                          "auron.trace.enable": traced}):
+            sync()
+            t0 = time.perf_counter()
+            res = session.execute(plan, dev)
+            sync()
+            secs = time.perf_counter() - t0
+        if res.spmd:
+            raise AssertionError(f"phase 31: {name} ran on the stage path")
+        diff = compare.compare_tables(HostTable.from_result(res),
+                                      runner.expected[name],
+                                      ordered=ordered)
+        if diff is not None:
+            raise AssertionError(f"phase 31: {name} fuse={fuse}: {diff}")
+        return res, secs
+
+    provider = C.ScanSourceProvider()
+    C.register_provider(provider)
+    try:
+        for name in FUSION_QUERIES:
+            plan = Q.build(name, runner.catalog)
+            ordered = compare.plan_is_ordered(plan)
+            seen, walls = {}, {False: [], True: []}
+            for fuse in (False, True):
+                with counted_syncs(cuda) as waits:
+                    traced, _ = execute(plan, name, ordered, fuse, True)
+                doc = checked_trace(31, name, traced, SERIAL_TRACE_FAMILIES)
+                seen[fuse] = (traced, len(waits),
+                              _span_s(doc, "plan.verify"),
+                              _span_s(doc, "plan.fuse"),
+                              fusion_readings(traced))
+            launches = {}
+            for fuse in (False, True, True, False):    # in turns
+                K.reset_launches()
+                res, secs = execute(plan, name, ordered, fuse, False)
+                walls[fuse].append(secs)
+                if launches.setdefault(fuse, dict(K.LAUNCHES)) != \
+                        K.LAUNCHES:
+                    raise AssertionError(f"phase 31: {name}: launches "
+                                         f"{K.LAUNCHES} after "
+                                         f"{launches[fuse]}")
+                same_result(f"{name} fused={fuse} against the traced "
+                            f"unfused run", res.columns,
+                            seen[False][0].columns, phase=31)
+            for fuse, tag in ((False, "unfused"), (True, "fused")):
+                all_launches[f"{name}_{tag}"] = launches[fuse]
+            (off, off_sy, off_v, _, off_f) = seen[False]
+            (on, on_sy, on_v, on_fuse_s, on_f) = seen[True]
+            off_la, on_la = launches[False], launches[True]
+            same_result(f"{name} fused against unfused", on.columns,
+                        off.columns, phase=31)
+            if off_f["fragments"]:
+                raise AssertionError(f"phase 31: {name} unfused ran "
+                                     f"fragments {off_f}")
+            if on_la["hash_partition_ids_i64"] != \
+                    off_la["hash_partition_ids_i64"]:
+                raise AssertionError(f"phase 31: {name}: hash-pid "
+                                     f"launches {on_la} fused, {off_la} "
+                                     f"unfused")
+
+            def fmt(ts):
+                return "/".join(f"{t:.4f}" for t in ts)
+            print(f"phase 31: {name} serial, verified, "
+                  f"{on.num_rows} rows equal fused and unfused and to the "
+                  f"expected results; fused: {on_f['fragments']} fragment "
+                  f"operators, {on_f['ops_fused']} operators fused, "
+                  f"{on_f['pid_fused_batches']} pid-fused batches, "
+                  f"{on_f['prologues']} prologue-fused aggregations; "
+                  f"launches hash-pid/radix-hist "
+                  f"{on_la['hash_partition_ids_i64']}/"
+                  f"{on_la['radix_bucket_hist']} fused, "
+                  f"{off_la['hash_partition_ids_i64']}/"
+                  f"{off_la['radix_bucket_hist']} unfused; host syncs "
+                  f"{on_sy} fused, {off_sy} unfused; wall {fmt(walls[True])} "
+                  f"s fused, {fmt(walls[False])} s unfused (off, on, on, "
+                  f"off); verifier host time {on_v * 1e3:.3f} ms fused, "
+                  f"{off_v * 1e3:.3f} ms unfused; fusion pass "
+                  f"{on_fuse_s * 1e3:.3f} ms | {card}")
+    finally:
+        C.unregister_provider(provider)
+    all_launches.update(run_prologue_task(cols, valid, dev, K, card))
+    print(f"phase 31: {time.perf_counter() - started:.1f} s | {card}")
+    return all_launches
+
+
+def prologue_plan():
+    """Phase 31 (b)'s map task: store_sales rows with ss_quantity > 50,
+    key and quantity x price, partial Sum and Count by customer, hash
+    exchange by customer."""
+    from auron_tpu_torch.ir import expr as E
+    from auron_tpu_torch.ir import plan as P
+    from auron_tpu_torch.ir.schema import DataType
+    f64, i64 = DataType.float64(), DataType.int64()
+    key = (E.col("ss_customer_sk"),)
+    proj = P.Projection(
+        child=P.Filter(
+            child=P.FFIReader(schema=_schema(*STORE_SALES),
+                              resource_id="store_sales"),
+            predicates=(E.BinaryExpr(
+                left=E.col("ss_quantity"), op=">",
+                right=E.Literal(value=50, dtype=DataType.int32())),)),
+        exprs=(E.col("ss_customer_sk"),
+               E.BinaryExpr(left=E.Cast(child=E.col("ss_quantity"),
+                                        dtype=f64),
+                            op="*", right=E.col("ss_sales_price"))),
+        names=("ss_customer_sk", "sales"))
+    aggs = (E.AggExpr(fn="sum", children=(E.col("sales"),), return_type=f64),
+            E.AggExpr(fn="count", children=(E.col("sales"),),
+                      return_type=i64))
+    return _writer(P.Agg(child=proj, exec_mode="partial", grouping=key,
+                         grouping_names=("ss_customer_sk",), aggs=aggs,
+                         agg_names=("sum_sales", "cnt_sales")),
+                   "hash", N_REDUCE, key)
+
+
+def run_prologue_task(cols, valid, dev, K, card: str) -> dict:
+    """Phase 31 (b): the prologue map task, fused and unfused."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.ops.shuffle.writer import InProcessShuffleService
+    names = ("ss_customer_sk", "sum_sales#sum", "cnt_sales#count")
+    plan = prologue_plan()
+    out, launches, walls = {}, {}, {False: [], True: []}
+    cuda = torch.device(dev).type == "cuda"
+    for fuse in (False, True, True, False):         # in turns
+        svc = InProcessShuffleService()
+        with conf.scoped({"auron.fuse.enable": fuse}):
+            K.reset_launches()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = map_task(0, cols, valid, svc, dev, plan, "prologue")
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches[f"prologue_{'fused' if fuse else 'unfused'}"] = \
+            dict(K.LAUNCHES)
+        frag = [m for n, m in res.operator_metrics
+                if n == "FusedFragmentExec"]
+        if (fuse and (len(frag) != 1 or frag[0].get("fused_into_parent") != 1
+                      or frag[0].get("output_batches"))) or \
+                (not fuse and frag):
+            raise AssertionError(f"phase 31: prologue fuse={fuse}: "
+                                 f"fragments {[dict(m) for m in frag]}")
+        groups = {}
+        for p in range(N_REDUCE):
+            blocks = svc.reduce_blocks("prologue", p)
+            if not blocks:
+                continue
+            rows = _blocks_numpy(blocks, names)
+            for i, k in enumerate(rows[names[0]][0].tolist()):
+                key = k if rows[names[0]][1][i] else None
+                groups[(p, key)] = (
+                    rows[names[1]][0][i] if rows[names[1]][1][i] else None,
+                    int(rows[names[2]][0][i]))
+        walls[fuse].append(secs)
+        out[fuse] = (groups, res.metrics.get("shuffle_write_batches"))
+    (g0, b0), (g1, b1) = out[False], out[True]
+    if set(g0) != set(g1) or b0 != b1 or any(
+            g0[k][1] != g1[k][1] or (g0[k][0] is None) != (g1[k][0] is None)
+            or (g0[k][0] is not None and
+                abs(g0[k][0] - g1[k][0]) > 1e-9 * abs(g0[k][0]))
+            for k in g0):
+        raise AssertionError("phase 31: the prologue's blocks differ from "
+                             "the unfused task's")
+    la0, la1 = launches["prologue_unfused"], launches["prologue_fused"]
+    # one of each kernel a writer batch, on the card (the CPU runs the
+    # plain versions)
+    if la0 != la1 or (cuda and (la1["hash_partition_ids_i64"] != b1 or
+                                la1["radix_bucket_hist"] != b1)):
+        raise AssertionError(f"phase 31: prologue launches {la1} fused, "
+                             f"{la0} unfused, {b1} writer batches")
+    print(f"phase 31: the prologue at SF 10 (map split 0, "
+          f"{len(cols[0]) // N_MAPS} rows): {len(g1)} (partition, customer) "
+          f"groups equal fused and unfused, {b1} writer batches, launches "
+          f"hash-pid/radix-hist {la1['hash_partition_ids_i64']}/"
+          f"{la1['radix_bucket_hist']} both ways; wall "
+          f"{'/'.join(f'{t:.4f}' for t in walls[True])} s fused (the "
+          f"aggregation's prologue), "
+          f"{'/'.join(f'{t:.4f}' for t in walls[False])} s unfused (off, "
+          f"on, on, off) | {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 28: serial SF-10 tasks under a memory budget
 # ---------------------------------------------------------------------------
 
@@ -4363,7 +4671,7 @@ def giant_group_plan():
 
 def run_spill_phase(cols, valid, keys, window, dev, K, seed: int,
                     card: str, shapes: list) -> dict:
-    """Phase 28: four serial SF-10 tasks through `execute_task_bytes`,
+    """Phase 28: five serial SF-10 tasks through `execute_task_bytes`,
     each under a SPILL_BUDGET budget (SPILL_TRIGGER trigger) and under
     the default one: (a) phase 3's first map split sorted by the global
     sort's keys, equal row for row; (b) the same rows grouped by (store,
@@ -4372,8 +4680,10 @@ def run_spill_phase(cols, valid, keys, window, dev, K, seed: int,
     plan, task count, stage, and its input blocks held in a host
     spill), equal; (d) a sort-merge join of
     a giant group past the window cap, equal as a row multiset to the
-    uncapped join.  Each budgeted run must spill from its operator, and
-    (d) take the escape.  Returns each task's launches."""
+    uncapped join; (e) (b)'s aggregation under a Filter -> Projection,
+    budgeted fused (the aggregation's prologue) and unfused, equal to
+    the unbudgeted run as (b).  Each budgeted run must spill from its
+    operator, and (d) take the escape.  Returns each task's launches."""
     from auron_tpu_torch.config import conf
     from auron_tpu_torch.ir import expr as E
     from auron_tpu_torch.ir import plan as P
@@ -4499,6 +4809,52 @@ def run_spill_phase(cols, valid, keys, window, dev, K, seed: int,
     print(f"phase 28: (d) {len(outs[0][0][0])} rows equal the uncapped "
           f"join's as a multiset, {escapes} giant-group escape | {card}")
     launches["giant_group"] = runs[0][2]
+    del runs, outs
+    # (e) (b)'s aggregation under a Filter -> Projection: fused, the
+    # aggregation's prologue groups the fragment's live rows
+    prologue = P.Agg(
+        child=P.Projection(
+            child=P.Filter(child=P.FFIReader(schema=agg_in, resource_id="ss"),
+                           predicates=(E.BinaryExpr(
+                               left=price, op=">=",
+                               right=E.Literal(value=20.0, dtype=f64)),)),
+            exprs=(E.col("ss_store_sk"), E.col("ss_item_sk"),
+                   E.BinaryExpr(left=price, op="-",
+                                right=E.Literal(value=20.0, dtype=f64))),
+            names=("ss_store_sk", "ss_item_sk", "excess")),
+        exec_mode="single",
+        grouping=(E.col("ss_store_sk"), E.col("ss_item_sk")),
+        grouping_names=("ss_store_sk", "ss_item_sk"),
+        aggs=(E.AggExpr(fn="sum", children=(E.col("excess"),),
+                        return_type=f64),
+              E.AggExpr(fn="count", children=(E.col("excess"),),
+                        return_type=i64)),
+        agg_names=("excess", "cnt"))
+    inputs = {"ss": ([store_k[:rows], item_k[:rows], cols[2][:rows]],
+                     [store_v[:rows], ones, valid[2][:rows]])}
+    runs = []
+    for fuse, budgeted in ((True, True), (False, True), (False, False)):
+        with conf.scoped({"auron.fuse.enable": fuse}):
+            runs.append(_spill_run(
+                f"(e) the prologue aggregation, fusion "
+                f"{'on' if fuse else 'off'},", task(prologue, inputs), K,
+                card, budgeted))
+    spilled("(e) fused", runs[0][1], runs[0][0], "AggExec")
+    spilled("(e) unfused", runs[1][1], runs[1][0], "AggExec")
+    frag = [[m.get("fused_into_parent") for n, m in r[0].operator_metrics
+             if n == "FusedFragmentExec"] for r in runs]
+    if frag != [[1], [], []]:
+        raise AssertionError(f"phase 28: (e) fragments {frag}: the fused "
+                             f"run did not take the prologue")
+    got = [_concat_columns(r[0].batches, runs[2][0].schema) for r in runs]
+    for g, what in zip(got[:2], ("fused", "unfused")):
+        _same_tensors(f"(e) the prologue aggregation {what}", g, got[2],
+                      float_cols=(2,))
+    print(f"phase 28: (e) {len(got[0][0][0])} groups, fused and unfused "
+          f"under the budget equal the unbudgeted run (keys and counts "
+          f"exact, sums within 1e-9) | {card}")
+    launches["prologue_agg"] = runs[0][2]
+    del runs, got
     print(f"phase 28: {time.perf_counter() - started:.1f} s | {card}")
     return launches
 
@@ -5533,8 +5889,10 @@ def main() -> int:
     no_spills("27", card)
     print(f"phase 27: {time.perf_counter() - new_phases:.1f} s | {card}")
     run_phase30(runner, dev, K, card)
-    del runner
     no_spills("30", card)
+    p31_launches = run_phase31(runner, cols, valid, dev, K, card)
+    del runner
+    no_spills("31", card)
 
     spill_launches = run_spill_phase(cols, valid, (item_k, store_k, store_v),
                                      spill_window, dev, K, args.seed, card,
@@ -5574,7 +5932,9 @@ def main() -> int:
             "corpus": corpus_launches["hash_partition_ids_i64"],
             **{f"spill_{t}": la["hash_partition_ids_i64"]
                for t, la in spill_launches.items()},
-            **{p: la["hash_partition_ids_i64"] for p, la in p29_launches.items()}},
+            **{p: la["hash_partition_ids_i64"] for p, la in p29_launches.items()},
+            **{f"phase31_{p}": la["hash_partition_ids_i64"]
+               for p, la in p31_launches.items()}},
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -5601,7 +5961,9 @@ def main() -> int:
             "corpus": corpus_launches["radix_bucket_hist"],
             **{f"spill_{t}": la["radix_bucket_hist"]
                for t, la in spill_launches.items()},
-            **{p: la["radix_bucket_hist"] for p, la in p29_launches.items()}},
+            **{p: la["radix_bucket_hist"] for p, la in p29_launches.items()},
+            **{f"phase31_{p}": la["radix_bucket_hist"]
+               for p, la in p31_launches.items()}},
         "max_abs_err": hist_err, **hist_json}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,14 @@ dependency order as `test_torch_corpus_joins.py::run_converted` runs
 them, generalized to a stage with several scans: each parquet scan
 becomes an FFIReader of its own, and a stage over a union runs one task
 per union partition, each fed the file group its assignment names.
-Every query the port builds must run and equal the oracle under
-`compare_tables(ordered=True)`; every query it cannot build is listed
+Each task goes through `execute_task_bytes`, so it runs as the port
+runs by default: verified (the suite sets `auron.plan.verify`), its
+row-local chains fused (`auron.fuse.enable`; 14 queries hold
+fragments: expand <- projection under a partial aggregation,
+projection <- filter and filter <- projection under an exchange, their
+partition ids fused, or under a sort) and then built.  All 103 queries run fused and
+must equal the oracle under `compare_tables(ordered=True)`; every
+query the port cannot build is listed
 with the refusal it raises, so a slice that unblocks one has to move it
 into the run set.
 """

@@ -8,11 +8,14 @@ against the JAX package's.
   same text.
 - q03 (the JAX golden's query, tests/golden_plans/q03.analyze.txt), q01
   and q65w at SF 0.002 with 3 fact chunks on the serial path through
-  both sessions (the JAX package's with `auron.fuse.enable` and
-  `auron.spmd.singleDevice.enable` off, one task at a time): their
-  merged, normalized trees have the same task groups, operator names
-  and `output_rows`, `output_batches`, `shuffle_write_rows` and
-  `shuffle_read_rows` on every node.
+  both sessions (`auron.spmd.singleDevice.enable` off, the JAX session
+  one task at a time), with `auron.fuse.enable` off in both, and these
+  and q39v and q95w (whose exchanges take pid-fused fragments) with it
+  off in both and on in both: their merged,
+  normalized trees have the same task groups, operator names
+  (`FusedFragmentExec` among them, fused) and `output_rows`,
+  `output_batches`, `shuffle_write_rows` and `shuffle_read_rows` on
+  every node.
 
 The allowed differences, each pinned by a test:
 - scan leaves: the JAX session reads the parquet files
@@ -55,6 +58,12 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "golden_plans", "q03.analyze.txt")
 SF, SEED, CHUNKS = 0.002, 7, 3
 QUERIES = ("q03", "q01", "q65w")
+# the runs with fusion set alike in both packages: QUERIES, which hold no
+# chain to fuse, q39v, whose exchanges take filter <- projection
+# fragments, and q95w, whose take projection <- filter ones (all
+# pid-fused)
+FUSED_QUERIES = QUERIES + ("q39v", "q95w")
+FRAGMENT_QUERIES = ("q39v", "q95w")
 KEYS = ("output_rows", "output_batches", "shuffle_write_rows",
         "shuffle_read_rows")
 SCAN_LEAVES = {"ParquetScanExec": "FFIReaderExec"}
@@ -208,24 +217,31 @@ def test_deferred_device_counts_settle_at_first_read():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """{query: (JAX result, port result)}, both serial, over one
-    catalog."""
+def catalogs(tmp_path_factory):
+    """(JAX catalog, port catalog, port tables) over one directory."""
     d = str(tmp_path_factory.mktemp("ea_tpcds"))
     jcat = jdatagen.generate(d, sf=SF, seed=SEED, fact_chunks=CHUNKS)
     pcat, tables = pdatagen.generate(d, sf=SF, seed=SEED,
                                      fact_chunks=CHUNKS)
+    return jcat, pcat, tables
+
+
+def _serial_runs(catalogs, queries, fuse: bool):
+    """{query: (JAX result, port result)}, both serial, with
+    `auron.fuse.enable` set to `fuse` in both packages."""
+    jcat, pcat, tables = catalogs
     out = {}
     provider = PC.ScanSourceProvider()
     PC.register_provider(provider)
     try:
-        for name in QUERIES:
+        for name in queries:
             with jconf.scoped({"auron.spmd.singleDevice.enable": False,
-                               "auron.fuse.enable": False,
+                               "auron.fuse.enable": fuse,
                                "auron.task.parallelism": 1}):
                 jr = JaxSession(foreign_engine=PyArrowEngine()).execute(
                     jqueries.build(name, jcat))
-            with conf.scoped({"auron.spmd.singleDevice.enable": False}):
+            with conf.scoped({"auron.spmd.singleDevice.enable": False,
+                              "auron.fuse.enable": fuse}):
                 pr = AuronSession(foreign_engine=pdatagen.TableEngine(
                     pcat, tables)).execute(pqueries.build(name, pcat),
                                            device="cpu")
@@ -233,6 +249,18 @@ def runs(tmp_path_factory):
     finally:
         PC.unregister_provider(provider)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(catalogs):
+    """Fusion off in both packages."""
+    return _serial_runs(catalogs, FUSED_QUERIES, False)
+
+
+@pytest.fixture(scope="module")
+def fused_runs(catalogs):
+    """Fusion on in both packages, the default of each."""
+    return _serial_runs(catalogs, FUSED_QUERIES, True)
 
 
 def _jax_groups(jr):
@@ -252,9 +280,7 @@ def _walk(node, path=()):
         yield from _walk(c, path)
 
 
-@pytest.mark.parametrize("name", QUERIES)
-def test_serial_trees_agree_with_the_jax_session(name, runs):
-    jr, pr = runs[name]
+def _assert_trees_agree(name, jr, pr):
     assert not pr.spmd and not jr.spmd
     assert pr.num_rows == jr.table.num_rows
     jg, pg = _jax_groups(jr), _port_groups(pr)
@@ -272,13 +298,7 @@ def test_serial_trees_agree_with_the_jax_session(name, runs):
                 assert got == want, (name, gi, path, key)
 
 
-@pytest.mark.parametrize("name", QUERIES)
-def test_allowed_differences_are_exactly_the_listed_ones(name, runs):
-    """Every key the port's nodes keep and the JAX nodes lack is one of
-    PORT_ONLY_KEYS, the other way round one of JAX_ONLY_KEYS (on the
-    scan leaves), the only groups the JAX session adds are its
-    ExchangeStats markers, and no batch count differs."""
-    jr, pr = runs[name]
+def _assert_only_listed_differences(jr, pr):
     jnames = [t.name for t in jr.metrics]
     assert any(n.startswith(JAX_ONLY_GROUP) for n in jnames)
     assert not any(t.name.startswith(JAX_ONLY_GROUP)
@@ -293,6 +313,42 @@ def test_allowed_differences_are_exactly_the_listed_ones(name, runs):
             assert extra <= JAX_ONLY_KEYS, path
             assert not extra or path[-1] in SCAN_LEAVES
     assert BATCH_DIFFERENCES == {}
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_serial_trees_agree_with_the_jax_session(name, runs):
+    _assert_trees_agree(name, *runs[name])
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_allowed_differences_are_exactly_the_listed_ones(name, runs):
+    """Every key the port's nodes keep and the JAX nodes lack is one of
+    PORT_ONLY_KEYS, the other way round one of JAX_ONLY_KEYS (on the
+    scan leaves), the only groups the JAX session adds are its
+    ExchangeStats markers, and no batch count differs."""
+    _assert_only_listed_differences(*runs[name])
+
+
+@pytest.mark.parametrize("name", FUSED_QUERIES)
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_serial_trees_agree_with_fusion_set_alike(name, fuse, runs,
+                                                   fused_runs):
+    """The same agreement, and the same listed differences only, with
+    `auron.fuse.enable` off in both packages and on in both; fused, the
+    fragment nodes carry the same names, rows, batches and keys
+    (`ops_fused`, `fused_batches`, `pid_fused_batches`)."""
+    jr, pr = (fused_runs if fuse else runs)[name]
+    _assert_trees_agree(name, jr, pr)
+    _assert_only_listed_differences(jr, pr)
+    fused_nodes = sum(1 for t in pr.metric_trees for n in _preorder(t)
+                      if n.name == "FusedFragmentExec")
+    assert (fused_nodes > 0) == (fuse and name in FRAGMENT_QUERIES)
+
+
+def _preorder(node):
+    yield node
+    for c in node.children:
+        yield from _preorder(c)
 
 
 def _canonical(text: str, port: bool) -> str:

@@ -288,3 +288,43 @@ def scan_provider(converters):
                 plan.FFIReader(schema=node.output, resource_id=rid),
                 len(node.attrs["file_groups"]))
     return ScanProvider()
+
+
+# -- the tasks a serial query runs ----------------------------------------------
+
+def serial_tasks(queries, sf: float, data_dir: str, seed: int = 7,
+                 fact_chunks: int = 3):
+    """[(query, TaskDefinition)] of every task the port's session runs
+    for `queries` on its serial path (the stage executor off), over the
+    port's TPC-DS tables at `sf` (nothing is written to `data_dir`):
+    each call of the session's `execute_plan`, recorded as it runs."""
+    from auron_tpu_torch.config import conf
+    from auron_tpu_torch.frontend import converters as PC
+    from auron_tpu_torch.frontend import session as PS
+    from auron_tpu_torch.ir import plan as PP
+    from auron_tpu_torch.it import datagen, queries as Q
+    cat, tables = datagen.generate(data_dir, sf=sf, seed=seed,
+                                   fact_chunks=fact_chunks)
+    out, current = [], [None]
+    run = PS.execute_plan
+
+    def record(plan, partition_id=0, num_partitions=1, **kw):
+        out.append((current[0], PP.TaskDefinition(
+            plan=plan, partition_id=partition_id,
+            num_partitions=num_partitions)))
+        return run(plan, partition_id=partition_id,
+                   num_partitions=num_partitions, **kw)
+
+    provider = PC.ScanSourceProvider()
+    PC.register_provider(provider)
+    PS.execute_plan = record
+    try:
+        for name in queries:
+            current[0] = name
+            with conf.scoped({"auron.spmd.singleDevice.enable": False}):
+                PS.AuronSession(foreign_engine=datagen.TableEngine(
+                    cat, tables)).execute(Q.build(name, cat), device="cpu")
+    finally:
+        PS.execute_plan = run
+        PC.unregister_provider(provider)
+    return out
